@@ -4,31 +4,51 @@ Run from the root of a checkout on a machine with a CUDA card (H100):
 
     python3 chip_smoke.py [--out results.json]
 
-It builds the hand-written CUDA kernel from the checkout's sources and runs
-six phases, each a hard assert; it exits 0 only if every phase passed, and
-exits non-zero without a result when no CUDA device is visible.
+It builds the hand-written CUDA kernels from the checkout's sources (one
+nvcc per source, all started together) and runs eight phases, each a hard
+assert; it exits 0 only if every phase passed, and exits non-zero without
+a result when no CUDA device is visible.
 
 1. Environment: the card's name and power limit (nvidia-smi), torch/CUDA
-   versions, TF32 off for matmuls and cuDNN, the kernel's build time.
-2. The paged-attention kernel against its plain PyTorch version on the card
-   at the main path's shapes (32 query heads on 2 KV heads, head_dim 128,
-   block 16): decode over ragged kv_len 1..2048, a 64-wide append chunk at
-   ragged offsets, a windowed case, ragged q_lens with a zero row, tables
-   with -1 tails; each in fp32 (tol 2e-5) and bf16 (tol 3e-2). Times are
-   CUDA-event medians of 30 launches after warm-up with L2 flushed; the
-   bound is max(live K/V + q + out + index bytes / 3.35 TB/s, operations /
-   peak rate of the input type).
-3. Exactness: chatglm3-6b at full width, depth cut to 2 layers, fp32
-   weights and pool, 2 stages, 2 data shards: every request's greedy tokens
-   from the paged ServeEngine (kernel path) equal the single-device oracle.
-4. The main path at full size: chatglm3-6b, 28 layers, bf16 weights and
-   pool, random weights from a seed; paged kernel, split admission, 2
-   stages, 2 slots x microbatch 2; 8 requests with 128-1024 prompt tokens
-   and 32 new tokens each. Every request completes with its budget and the
-   kernel's launch count equals calls x slots x layers. One more decode
+   versions, TF32 off for matmuls and cuDNN, the kernels' build time.
+2. The paged-attention kernel (K2) against its plain PyTorch version on
+   the card at the serving path's shapes (32 query heads on 2 KV heads,
+   head_dim 128, block 16): decode over ragged kv_len 1..2048, a 64-wide
+   append chunk at ragged offsets, a windowed case, ragged q_lens with a
+   zero row, tables with -1 tails; each in fp32 (tol 2e-5) and bf16 (tol
+   3e-2). Times are CUDA-event medians of 30 launches after warm-up with
+   L2 flushed; the bound is max(bytes / 3.35 TB/s, operations / peak rate
+   of the input type).
+3. The flash-attention kernel (K1) against its plain version at the
+   training path's shape (b 1, seq 2048, 32 query heads on 2 KV heads,
+   head_dim 128, causal) and the reference sweep's edge cases (ragged sq
+   33 with hq = hkv, window 24, kv_offset 32 with sq 16 / sk 48), fp32
+   (tol 2e-5) and bf16 (tol 2e-2); the autograd op's q/k/v gradients
+   against autograd of the plain version; times as phase 2, beside
+   ``F.scaled_dot_product_attention`` (timed as a yardstick only).
+4. Serving exactness: chatglm3-6b at full width, depth cut to 2 layers,
+   fp32 weights and pool, 2 stages, 2 data shards: every request's greedy
+   tokens from the paged ServeEngine (kernel path) equal the oracle.
+5. The serving path at full size: chatglm3-6b, 28 layers, bf16 weights
+   and pool, random weights from a seed; paged kernel, split admission,
+   2 stages, 2 slots x microbatch 2; 8 requests with 128-1024 prompt
+   tokens and 32 new tokens each. Every request completes with its budget
+   and K2's launch count equals calls x slots x layers. One more decode
    call is profiled for its host op count and the card's busy time.
-5. A {"kernels": [...]} line for every ported kernel.
-6. The last line: {"ok": true, "device": {"platform": "gpu", ...}}.
+6. Training exactness: full-width chatglm3-6b cut to 2 layers, fp32, K = 2
+   trials, 2 stages, 2 microbatches, seq 512, 2 steps of the pipelined
+   train step (flash kernel) against K independent unpipelined runs
+   (plain attention): losses, and each trial's loss on a held-out batch
+   after the last update, within 2e-4; parameters within 5e-3; each
+   trial's parameter change within 10 % of the sequential run's.
+7. The training path: ``run_model_selection`` as ``launch/train.py``
+   calls it, on full-width chatglm3-6b cut to 4 layers (full depth needs
+   100 GB of fp32 state per trial), 2 trials, 2 stages, seq 2048, 3 steps,
+   remat, flash kernel, fp32. Both trials in one gang, K1's launch count
+   equal to the schedule's, 0 restarts, finite losses; step time, tokens/s,
+   model FLOP/s, K1's share of step time and peak memory are recorded.
+8. A {"kernels": [...]} line for every ported kernel, the card line, and
+   the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 from __future__ import annotations
 
@@ -49,6 +69,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # dense, same
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 HQ, HKV, HD, BS = 32, 2, 128, 16  # chatglm3-6b attention, serving block
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # test_kernels_flash
 
 
 def say(*parts) -> None:
@@ -165,11 +186,100 @@ def phase2(pa, dev, flush, card):
 
 
 # ---------------------------------------------------------------------------
-# Phases 3 and 4: the serve engine
+# Phase 3: the flash-attention kernel vs its plain version
+# ---------------------------------------------------------------------------
+
+# name, b, sq, sk, hq, hkv, hd, causal, window, kv_offset
+FLASH_CASES = [
+    ("train2048", 1, 2048, 2048, HQ, HKV, HD, True, 0, 0),
+    ("ragged_sq33_mha", 2, 33, 33, 4, 4, 32, True, 0, 0),
+    ("window24", 1, 128, 128, 8, 2, 16, True, 24, 0),
+    ("offset32", 1, 16, 48, 4, 1, 16, True, 0, 32),
+]
+
+
+def flash_pairs(sq, sk, causal, window, off):
+    """Attended (query, key) pairs under the masks."""
+    pairs = 0
+    for i in range(sq):
+        qpos = i + off
+        hi = min(sk, qpos + 1) if causal else sk
+        lo = max(0, qpos - window + 1) if window else 0
+        pairs += max(0, hi - lo)
+    return pairs
+
+
+def phase3(fa, ops, dev, flush, card):
+    import torch.nn.functional as F
+    results = []
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for dt in (torch.float32, torch.bfloat16):
+        for name, b, sq, sk, hq, hkv, hd, causal, window, off in FLASH_CASES:
+            mk = lambda *shape: torch.randn(*shape, generator=gen,
+                                            device=dev).to(dt)
+            q, k, v = mk(b, sq, hq, hd), mk(b, sk, hkv, hd), mk(b, sk, hkv, hd)
+            kw = dict(causal=causal, window=window, kv_offset=off)
+            got = fa.flash_attention_kernel(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_plain(q, k, v, **kw)
+            err = float((got.float() - want.float()).abs().max())
+            assert torch.isfinite(got).all() and got.dtype == dt, name
+            assert err < FLASH_TOL[dt], f"{name}/{dt}: max |kernel - plain| " \
+                f"{err}"
+            rec = dict(card=card, case=name, dtype=str(dt).split(".")[-1],
+                       b=b, sq=sq, sk=sk, hq=hq, hkv=hkv, hd=hd,
+                       window=window, kv_offset=off, max_abs_err=err,
+                       tol=FLASH_TOL[dt])
+            if name == "train2048":
+                es = q.element_size()
+                pairs = flash_pairs(sq, sk, causal, window, off)
+                nbytes = es * (2 * q.numel() + k.numel() + v.numel())
+                ops_n = 4 * hd * hq * b * pairs  # QK^T and PV, 2 per MAC
+                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_n / PEAK_OPS[dt]
+                qt, kt, vt = (x.transpose(1, 2).contiguous()
+                              for x in (q, k, v))
+                rec.update(
+                    ms=cuda_ms(lambda: fa.flash_attention_kernel(q, k, v,
+                                                                 **kw),
+                               flush),
+                    plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
+                        q, k, v, **kw), flush),
+                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True), flush),
+                    bound_ms=1e3 * max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    pairs=pairs, bytes=nbytes, ops=ops_n)
+                lib = F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+                rec["library_max_abs_err"] = float(
+                    (lib.transpose(1, 2).float() - want.float()).abs().max())
+            if dt == torch.float32:
+                # gradients: the op (kernel forward, chunked backward)
+                # against autograd of the plain version
+                ct = torch.randn(q.shape, generator=gen, device=dev)
+                grads = []
+                for fn in (ops.flash_attention, fa.flash_attention_plain):
+                    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                    fn(*leaves, **kw).backward(ct)
+                    grads.append([x.grad for x in leaves])
+                gerr = max(float((a - b_).abs().max()) / max(
+                    1.0, float(b_.abs().max())) for a, b_ in zip(*grads))
+                assert all(torch.isfinite(g).all() for g in grads[0]), name
+                # fp32 sums over up to 2048 keys in other orders: 2e-5
+                # relative to the gradient's largest entry
+                assert gerr < 2e-5, f"{name}: gradient error {gerr}"
+                rec["grad_rel_err"] = gerr
+            results.append(rec)
+            say("phase 3:", json.dumps(rec))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phases 4 and 5: the serve engine
 # ---------------------------------------------------------------------------
 
 
-def phase3(dev):
+def phase4(dev):
     from repro_torch.configs import get_config
     from repro_torch.core import pipeline as pl
     from repro_torch.core.partitioner import plan_stages
@@ -205,7 +315,7 @@ def phase3(dev):
     rec = dict(requests=len(comps), tokens=sum(len(c.tokens) for c in comps),
                mismatches=mismatches, calls=engine.stats.calls,
                ticks=engine.stats.ticks)
-    say("phase 3: full-width 2-layer fp32 engine (2 stages, 2 data shards) "
+    say("phase 4: full-width 2-layer fp32 engine (2 stages, 2 data shards) "
         "vs single-device oracle:", json.dumps(rec))
     return rec
 
@@ -244,7 +354,7 @@ def profile_decode_call(engine, req):
     return counts[0]
 
 
-def phase4(pa, dev, card):
+def phase5(pa, dev, card):
     from repro_torch.configs import get_config
     from repro_torch.core import pipeline as pl
     from repro_torch.core.partitioner import plan_stages
@@ -348,7 +458,310 @@ def phase4(pa, dev, card):
                                   else 1.0 - busy_ms / decode_ms),
         instrumented_wall_s=wall2, param_init_s=init_s,
         ttft_p50_ticks=st.summary().get("ttft_p50"))
-    say("phase 4: full chatglm3-6b bf16 paged serving:", json.dumps(rec))
+    say("phase 5: full chatglm3-6b bf16 paged serving:", json.dumps(rec))
+    return rec, launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 6 and 7: training
+# ---------------------------------------------------------------------------
+
+TRAIN_HP = {"lr": [3e-3, 1e-3], "wd": [0.0, 0.01]}
+
+
+def sequential_reference(cfg, params_host, batches, eval_batch, k, dev):
+    """Trial k trained alone: its own unpipelined loss (the mean over the
+    microbatches of lm.loss_fn, plain attention), its true gradient norm,
+    the same AdamW. Returns (per-step losses, the loss on ``eval_batch``
+    after the last update, final params on the host)."""
+    from repro_torch.models import lm
+    from repro_torch.models.layers import ModelOptions
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import tree_leaves, tree_map
+
+    p = tree_map(lambda t: t[k].to(dev, copy=True).requires_grad_(),
+                 params_host)
+    stacked = lambda tree: tree_map(lambda t: t[None], tree)
+    opt = AdamW(grad_clip=1.0)
+    state = opt.init(stacked(p))
+    hp = {n: v[k:k + 1] for n, v in TRAIN_HP.items()}
+
+    def loss_of(batch):
+        n_micro = batch["tokens"].shape[1]
+        return sum(lm.loss_fn(cfg, ModelOptions(), p, {
+            "tokens": torch.from_numpy(batch["tokens"][k, m]).to(dev),
+            "labels": torch.from_numpy(batch["labels"][k, m]).to(dev)})
+            for m in range(n_micro)) / n_micro
+
+    losses = []
+    for step, batch in enumerate(batches):
+        loss = loss_of(batch)
+        loss.backward()
+        grads = tree_map(lambda t: t.grad[None], p)
+        sq = [torch.linalg.vector_norm(g).square()
+              for g in tree_leaves(grads)]
+        opt.update(stacked(p), grads, state, hp, step,
+                   grad_norm=torch.sqrt(sum(sq)).reshape(1))
+        tree_map(lambda t: t.grad.zero_(), p)
+        losses.append(loss.item())
+    with torch.no_grad():
+        final_loss = loss_of(eval_batch).item()
+    return losses, final_loss, tree_map(
+        lambda t: t.detach().to("cpu", copy=True), p)
+
+
+def phase6(dev, card):
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.partitioner import plan_stages
+    from repro_torch.data.pipeline import TrainBatches
+    from repro_torch.models.layers import ModelOptions
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("chatglm3-6b"), n_layers=2)
+    eng = pl.EngineConfig(n_trials=2, n_microbatches=2, microbatch=1,
+                          n_stages=2)
+    seq, n_steps = 512, 2
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = pl.init_trial_params(cfg, eng, plan_stages(cfg, 2), gen,
+                                  device=dev)
+    host0 = tree_map(lambda t: t.to("cpu", copy=True), params)
+    data = TrainBatches(cfg, eng, seq, seed=0)
+    # the last batch is held out: both runs' losses after the last update
+    *batches, eval_batch = [data.batch_for_step(i)
+                            for i in range(n_steps + 1)]
+    data.close()
+    opt = AdamW(grad_clip=1.0)
+    state = opt.init(params)
+    opts = ModelOptions(remat=True, use_flash_kernel=True)
+    step = pl.make_train_step(cfg, opts, eng, opt)
+    pipe_losses = []
+    for i, batch in enumerate(batches):
+        params, state, met = step(params, state, batch, TRAIN_HP, i)
+        pipe_losses.append(met["loss"].tolist())
+    with torch.no_grad():
+        pipe_final = pl.pipeline_train_loss(cfg, opts, eng, params,
+                                            eval_batch)[0].tolist()
+    pipe_params = tree_map(lambda t: t.to("cpu", copy=True), params)
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_err = param_err = 0.0
+    change_err = []
+    for k in range(eng.n_trials):
+        ref_losses, ref_final, ref_params = sequential_reference(
+            cfg, host0, batches, eval_batch, k, dev)
+        loss_err = max(loss_err, abs(pipe_final[k] - ref_final), max(
+            abs(a[k] - b) for a, b in zip(pipe_losses, ref_losses)))
+        leaves = list(zip(tree_leaves(host0), tree_leaves(pipe_params),
+                          tree_leaves(ref_params)))
+        param_err = max(param_err, max(float((a[k] - b).abs().max())
+                                       for _, a, b in leaves))
+        # trial k's parameter change, pipelined against sequential,
+        # relative to the size of the sequential change: a dropped or
+        # doubled last update moves it by about 1 / n_steps
+        change_err.append(
+            max(float((a[k] - b).abs().max()) for _, a, b in leaves)
+            / max(float((b - p0[k]).abs().max()) for p0, _, b in leaves))
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec = dict(card=card, layers=cfg.n_layers, d_model=cfg.d_model,
+               trials=eng.n_trials, stages=eng.n_stages,
+               microbatches=eng.n_microbatches, seq=seq, steps=n_steps,
+               pipelined_losses=pipe_losses, pipelined_final_losses=pipe_final,
+               max_loss_err=loss_err, max_param_err=param_err,
+               param_change_rel_err=change_err)
+    say("phase 6: pipelined train step (flash kernel) vs sequential "
+        "single-trial runs:", json.dumps(rec))
+    assert loss_err < 2e-4, f"loss error {loss_err}"
+    assert param_err < 5e-3, f"param error {param_err}"
+    assert max(change_err) < 0.1, f"parameter change error {change_err}"
+    return rec
+
+
+def model_flops_per_step(cfg, eng, seq):
+    """Model FLOPs of one train step (no remat recompute counted): 6 per
+    matmul parameter per token (forward + backward), plus attention's
+    4·hd·hq per attended causal pair per layer, times 3."""
+    tokens = eng.n_trials * eng.n_microbatches * eng.mb_global * seq
+    matmul = cfg.n_layers * (cfg.layer_param_count() - 2 * cfg.d_model) \
+        + cfg.d_model * cfg.vocab_size  # layers' weights + the head
+    pairs = seq * (seq + 1) // 2
+    attn = 3 * 4 * cfg.head_dim * cfg.n_heads * pairs * cfg.n_layers
+    return 6 * matmul * tokens + attn * tokens // seq
+
+
+def kernel_class(name: str) -> str:
+    n = name.lower()
+    if "flash_attention_kernel" in n:
+        return "k1_flash_attention"
+    if any(t in n for t in ("gemm", "gemv", "cutlass", "xmma", "cublas")):
+        return "matmul"
+    if "reduce" in n:
+        return "reduction"
+    if "elementwise" in n or "vectorized" in n:
+        return "elementwise"
+    if "memcpy" in n or "memset" in n:
+        return "copy_memset"
+    return "other"
+
+
+def profile_train_step(cfg, opts, eng, seq, dev):
+    """Device time by kernel class over one more train step of the planned
+    gang (fresh weights from a seed; one warm step first, which allocates
+    the gradient buffer): the summed durations of the step's kernels and
+    copies on the card, from a profile with CUDA activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.partitioner import plan_stages
+    from repro_torch.data.pipeline import TrainBatches
+    from repro_torch.optim.adamw import AdamW
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = pl.init_trial_params(cfg, eng, plan_stages(cfg, eng.n_stages),
+                                  gen, device=dev)
+    opt = AdamW(grad_clip=1.0)
+    state = opt.init(params)
+    step = pl.make_train_step(cfg, opts, eng, opt)
+    data = TrainBatches(cfg, eng, seq, seed=0)
+    batches = [data.batch_for_step(i) for i in range(2)]
+    data.close()
+    hp = {"lr": [3e-3, 1.5e-3], "wd": [0.0, 0.0]}
+    step(params, state, batches[0], hp, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(params, state, batches[1], hp, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    by_class, n = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            c = kernel_class(e.name)
+            by_class[c] = by_class.get(c, 0.0) + e.time_range.elapsed_us() / 1e3
+            n += 1
+    return dict(profiled_step_ms=1e3 * wall, device_kernels=n,
+                device_busy_ms=sum(by_class.values()), busy_ms_by_class=by_class)
+
+
+def phase7(fa, dev, card):
+    from repro_torch.configs import get_config
+    from repro_torch.core import hydra
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.scheduler import per_chip_bytes, state_bytes
+    from repro_torch.core.trials import grid_search
+    from repro_torch.models.layers import ModelOptions
+    from repro_torch.obs.tracer import Tracer
+
+    # as launch/train.py --n-layers 4 --trials 2 --steps 3 --n-model 2
+    # --seq-len 2048 builds it
+    cfg = dataclasses.replace(get_config("chatglm3-6b"), n_layers=4)
+    opts = ModelOptions(remat=True, use_flash_kernel=True)
+    base = pl.EngineConfig(n_trials=2, n_microbatches=4, microbatch=1,
+                           n_stages=2)
+    seq, n_steps = 2048, 3
+    hc = hydra.HydraConfig(seq_len=seq, steps=n_steps)
+    trials = grid_search(cfg.name, [3e-3 * 0.5 ** i for i in range(2)])
+
+    step_s, in_step, events = [], [False], []
+    real_make, real_kernel = pl.make_train_step, fa.flash_attention_kernel
+
+    def timed_make(*a, **kw):
+        fn = real_make(*a, **kw)
+
+        def step(*sa, **skw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            in_step[0] = True
+            out = fn(*sa, **skw)
+            torch.cuda.synchronize()
+            in_step[0] = False
+            step_s.append(time.perf_counter() - t)
+            return out
+        return step
+
+    def evented(*a, **kw):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = real_kernel(*a, **kw)
+        e.record()
+        if in_step[0]:
+            events.append((s, e))
+        return out
+
+    tracer = Tracer()
+    pl.make_train_step, fa.flash_attention_kernel = timed_make, evented
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0  # count the training path's launches only
+    t0 = time.perf_counter()
+    try:
+        out = hydra.run_model_selection(cfg, opts, hc, trials, base,
+                                        tracer=tracer, device=dev)
+    finally:
+        pl.make_train_step, fa.flash_attention_kernel = real_make, real_kernel
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.launches
+    peak = torch.cuda.max_memory_allocated()
+    gang = [e for e in tracer.events if e["ev"] == "span_begin"
+            and e["name"] == "gang"]
+    ends = [e for e in tracer.events if e["ev"] == "span_end"
+            and e["name"] == "gang"]
+    assert len(gang) == 1 and gang[0]["n_trials"] == 2, gang
+    K, M = gang[0]["n_trials"], gang[0]["n_microbatches"]
+    S, L = base.n_stages, cfg.n_layers
+    # per train step every layer's forward runs 3 times per (trial,
+    # microbatch) slot — forward, the (stage, slot) recompute (tick remat),
+    # the layer recompute (layer remat) — except that torch's checkpoint
+    # early stop skips the layer recompute of the last layer of each stage
+    # before the last; the evaluation pass runs each layer once per slot
+    expected = n_steps * K * M * (3 * L - (S - 1)) + K * M * L
+    assert launches == expected > 0, (launches, expected)
+    assert [e["restarts"] for e in ends] == [0], ends
+    res = out["all"]
+    assert len(res) == 2 and all(np.isfinite(r.train_loss)
+                                 and np.isfinite(r.val_loss) for r in res)
+    eng = dataclasses.replace(base, n_trials=K, n_microbatches=M)
+    steady = step_s[1:]
+    step_ms = 1e3 * float(np.median(steady))
+    flops = model_flops_per_step(cfg, eng, seq)
+    kernel_s = sum(s.elapsed_time(e) for s, e in events) / 1e3
+    rec = dict(
+        card=card, layers=L, d_model=cfg.d_model, dtype="float32",
+        params_per_trial=cfg.param_count(), trials=K, microbatches=M,
+        stages=S, microbatch=base.microbatch, seq=seq, steps=n_steps,
+        bubble_fraction=eng.bubble_fraction, step_ms=step_ms,
+        step_ms_all=[1e3 * x for x in step_s],
+        tokens_per_step=K * M * base.microbatch * seq,
+        tokens_per_s=K * M * base.microbatch * seq / (step_ms / 1e3),
+        model_flops_per_step=flops,
+        model_tflops_per_s=flops / (step_ms / 1e3) / 1e12,
+        share_of_fp32_peak=flops / (step_ms / 1e3) / PEAK_OPS[torch.float32],
+        kernel_launches=launches, expected_launches=expected,
+        kernel_s_in_steps=kernel_s,
+        kernel_share_of_step_time=kernel_s / sum(step_s),
+        max_memory_allocated_gb=peak / 1e9,
+        # the planner's memory model for the gang: per stage and trial,
+        # times K trials and the S stages that share the card
+        planner_estimate_gb=per_chip_bytes(
+            cfg, eng, seq, True, **state_bytes(hc.param_dtype)).total
+        * K * S / 1e9,
+        restarts=ends[0]["restarts"],
+        results=[dict(tag=r.spec.tag, lr=r.spec.lr, train_loss=r.train_loss,
+                      val_loss=r.val_loss) for r in res],
+        best_trial=out["best"].spec.tag, wall_s=wall)
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = profile_train_step(cfg, opts, eng, seq, dev)
+    prof["device_idle_share"] = 1.0 - prof["device_busy_ms"] / step_ms
+    rec["profile"] = prof
+    say(f"phase 7: gang plan K={K} M={M} (S={S}, bubble "
+        f"{eng.bubble_fraction:.4f})")
+    say("phase 7: run_model_selection, chatglm3-6b 4 layers fp32:",
+        json.dumps(rec))
     return rec, launches
 
 
@@ -362,6 +775,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
 
     dev = torch.device("cuda")
@@ -372,42 +788,61 @@ def main(argv=None) -> int:
     say(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; TF32 off for matmul and cuDNN")
     t0 = time.perf_counter()
-    report = pa.build()
+    builds = [(m.SOURCE, kbuild.start(m.SOURCE)) for m in (pa, fa)]
+    for source, proc in builds:  # one nvcc per source, all started at once
+        report = kbuild.finish(source, proc)
+        say(f"phase 1: built {kbuild.library_path(source).name} from "
+            f"{source.relative_to(ROOT)}")
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                say("  nvcc:", line.strip())
     build_s = time.perf_counter() - t0
-    say(f"phase 1: built {pa.library_path().name} from "
-        f"{pa.SOURCE.relative_to(ROOT)} in {build_s:.2f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            say("  nvcc:", line.strip())
+    say(f"phase 1: both kernels built in {build_s:.2f} s")
 
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
-    cases = phase2(pa, dev, flush, card)
+    p2 = phase2(pa, dev, flush, card)
+    p3 = phase3(fa, ops, dev, flush, card)
     del flush
-    p3 = phase3(dev)
-    # phase 3's engine holds its weights in a reference cycle (the transfer
+    p4 = phase4(dev)
+    # phase 4's engine holds its weights in a reference cycle (the transfer
     # engine's cache callbacks): collect it, or its ~3.8 GB lingers into
-    # phase 4's peak memory
+    # phase 5's peak memory
     gc.collect()
     torch.cuda.empty_cache()
-    p4, launches = phase4(pa, dev, card)
+    p5, pa_launches = phase5(pa, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    p6 = phase6(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    p7, fa_launches = phase7(fa, dev, card)
 
-    row = next(c for c in cases
+    row = next(c for c in p2
                if c["case"] == "decode" and c["dtype"] == "bfloat16")
+    frow = next(c for c in p3
+                if c["case"] == "train2048" and c["dtype"] == "float32")
     kernels = {"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:189",
-        "launches": launches, "max_abs_err": row["max_abs_err"],
+        "launches": pa_launches, "max_abs_err": row["max_abs_err"],
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": None}]}
+        "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:83",
+        "launches": fa_launches, "max_abs_err": frow["max_abs_err"],
+        "ms": frow["ms"], "plain_ms": frow["plain_ms"],
+        "bound_ms": frow["bound_ms"], "bound_by": frow["bound_by"],
+        "library_ms": frow["library_ms"]}]}
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(
             card=card, torch=torch.__version__, cuda=torch.version.cuda,
-            build_s=build_s, phase2=cases, phase3=p3, phase4=p4,
-            kernels=kernels["kernels"]), indent=1))
+            build_s=build_s, phase2=p2, phase3=p3, phase4=p4, phase5=p5,
+            phase6=p6, phase7=p7, kernels=kernels["kernels"]), indent=1))
     say(json.dumps(kernels))
     say("card:", card_line())
     say(json.dumps({"ok": True, "device": {

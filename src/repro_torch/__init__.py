@@ -1,9 +1,12 @@
 """PyTorch/CUDA port of the Hydra model-selection system.
 
 A second package beside ``repro`` (the JAX reference, which it never
-imports). It serves ``chatglm3-6b`` through the continuous-batching engine
-with a paged KV pool; attention reads the pool through a hand-written CUDA
-kernel (``csrc/paged_attention.cu``). Entry points run on ``cuda`` unless
-the caller passes ``device="cpu"``, where every kernel wrapper takes its
-plain PyTorch version.
+imports). It trains K trials of ``chatglm3-6b`` stacked and pipelined over
+S stages in one step (``core.hydra.run_model_selection``), with attention
+through a hand-written CUDA flash-attention kernel
+(``csrc/flash_attention.cu``), and serves the model through the
+continuous-batching engine with a paged KV pool read by a hand-written
+CUDA kernel (``csrc/paged_attention.cu``). Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``, where every kernel wrapper
+takes its plain PyTorch version.
 """

@@ -1,10 +1,10 @@
-"""Hydra's pipelined serving program, run in one process (PyTorch port).
+"""Hydra's pipelined multi-trial programs — training and serving — run in
+one process (PyTorch port of ``repro/core/pipeline.py``).
 
-Port of the serve half of ``repro/core/pipeline.py``. The reference
-compiles one SPMD program over a (data × model) device mesh; the port keeps
-the schedule's semantics exactly — the tests compare tokens, ticks and call
-counts with the reference — and runs the mesh as structure inside one
-process on one device:
+The reference compiles one SPMD program over a (data × model) device mesh;
+the port keeps the schedule's semantics exactly — the tests compare losses,
+gradients, tokens, ticks and call counts with the reference — and runs the
+mesh as structure inside one process on one device:
 
   * **stages.** Each tick ``t`` advances stage ``s`` on slot ``t - s`` in the
     reference's tick order; activations hop stage to stage through a Python
@@ -20,22 +20,32 @@ process on one device:
   * **data shards.** Row ``r`` of the global microbatch belongs to shard
     ``r // microbatch``; its block table holds *shard-local* ids into the
     pool slice ``[shard·n_blocks/dp, (shard+1)·n_blocks/dp)``, and the
-    program adds that offset before touching the pool.
+    program adds that offset before touching the pool. In training the
+    shards are equal row blocks of one global microbatch, so the mean over
+    all its rows is the reference's psum of per-shard means divided by the
+    data-parallel degree.
+  * **gradients.** The reference differentiates *through* the scanned
+    pipeline; here one ``backward()`` runs through the tick loop, so each
+    trial's gradient is exactly the unpipelined one (paper desideratum D3).
 
-Pools and caches are updated in place (the reference donates them).
+Pools, caches, parameters and optimizer state are updated in place (the
+reference donates them).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.partitioner import StagePlan, plan_stages
 from repro_torch.models import lm
 from repro_torch.models.layers import ModelOptions
+from repro_torch.tree import tree_leaves, tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -45,13 +55,13 @@ from repro_torch.models.layers import ModelOptions
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Static configuration of one Hydra serving gang (same-arch trials).
+    """Static configuration of one Hydra gang (same-architecture trials).
 
-    The K trial rows double as the co-serving axis: each row holds one
-    model variant's weights and pool, and the serve engine routes per-arch
-    request streams into the matching rows. The reference's mesh-axis
-    names, pod axis, FSDP and training knobs, sliding-window serving and
-    the host spill tier are not ported.
+    In serving the K trial rows double as the co-serving axis: each row
+    holds one model variant's weights and pool, and the serve engine routes
+    per-arch request streams into the matching rows. The reference's
+    mesh-axis names, pod axis, FSDP, sliding-window serving and the host
+    spill tier are not ported.
     """
 
     n_trials: int  # K — concurrent model variants
@@ -66,6 +76,9 @@ class EngineConfig:
     n_blocks: int = 0  # pool size PER TRIAL; each data shard owns an equal
     # slice of n_blocks / data_size blocks
     prefill_chunks: int = 1  # admission chunks per prompt (serve engine)
+    vocab_parallel: bool = True  # train loss over S logical vocab shards
+    # (per-shard max / sum-exp, as the reference's psum form); False = one
+    # plain CE over the full head
 
     @property
     def n_slots(self) -> int:
@@ -78,6 +91,10 @@ class EngineConfig:
     @property
     def mb_global(self) -> int:
         return self.microbatch * self.data_size
+
+    @property
+    def bubble_fraction(self) -> float:
+        return (self.n_stages - 1) / self.n_ticks
 
     def padded_vocab(self, vocab: int) -> int:
         s = self.n_stages
@@ -98,12 +115,8 @@ def init_trial_params(cfg: ArchConfig, eng: EngineConfig, plan: StagePlan,
                              n_layers=plan.padded_layers, device=device)
               for _ in range(eng.n_trials)]
 
-    def stack(*leaves):
-        if isinstance(leaves[0], dict):
-            return {k: stack(*(lf[k] for lf in leaves)) for k in leaves[0]}
-        return leaves[0][None] if len(leaves) == 1 else torch.stack(leaves)
-
-    params = stack(*trials)
+    params = tree_map(lambda *leaves: (leaves[0][None] if len(leaves) == 1
+                                       else torch.stack(leaves)), *trials)
     del trials
     pad = eng.padded_vocab(cfg.vocab_size) - cfg.vocab_size
     if pad:
@@ -152,6 +165,198 @@ def vp_greedy_token(cfg: ArchConfig, eng: EngineConfig, norm_p, head_k, y):
     """Greedy next token, y (b, 1, D) -> ((b,) int32, (b,) float32)."""
     tok, gmax = vp_greedy_tokens(cfg, eng, norm_p, head_k, y)
     return tok[:, 0], gmax[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Embedding and loss heads of the train program
+# ---------------------------------------------------------------------------
+
+
+def plain_embed(cfg: ArchConfig, eng: EngineConfig, embed_k, tokens,
+                compute_dtype=torch.float32):
+    """Embedding from the full (padded) table of one trial."""
+    return lm.embed_tokens(cfg, embed_k, tokens, compute_dtype=compute_dtype)
+
+
+def vp_loss(cfg: ArchConfig, eng: EngineConfig, norm_p, head_k, y, labels):
+    """Vocab-parallel cross-entropy (mean over tokens) over S logical vocab
+    shards of one trial's padded head (D, Vp): each shard's logits, the
+    global max from the per-shard maxima (a pure stabilizer: detached, as
+    the reference's stop_gradient), per-shard sums of exp summed over the
+    shards, and the label's logit from the shard that owns it."""
+    x = lm.final_norm_apply(cfg, norm_p, y)
+    logits = (x @ head_k).float()  # (b, s, Vp)
+    vp, S = logits.shape[-1], eng.n_stages
+    gid = torch.arange(vp, device=logits.device)
+    logits = logits.masked_fill(gid >= cfg.vocab_size, -1e30)
+    sh = logits.reshape(*logits.shape[:-1], S, vp // S)
+    lmax = sh.detach().amax(dim=-1).amax(dim=-1)  # (b, s)
+    sumexp = torch.exp(sh - lmax[..., None, None]).sum(dim=-1).sum(dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = torch.log(sumexp) + lmax - ll
+    return nll.mean()
+
+
+def plain_loss(cfg: ArchConfig, eng: EngineConfig, norm_p, head_k, y,
+               labels):
+    x = lm.final_norm_apply(cfg, norm_p, y)
+    return lm.cross_entropy(x @ head_k, labels)
+
+
+# ---------------------------------------------------------------------------
+# Training: the pipelined multi-trial loss, run tick by tick
+# ---------------------------------------------------------------------------
+
+
+def unstack_trials(params):
+    """The trial-stacked parameter dict -> a list over K of per-trial dicts
+    whose ``"layers"`` is a list of per-layer dicts (all views)."""
+    n_k = params["final_norm"].shape[0]
+    n_l = params["layers"]["ln1"].shape[1]
+    out = []
+    for k in range(n_k):
+        p_k = lm.layer_slice({n: v for n, v in params.items()
+                              if n != "layers"}, k)
+        layers_k = lm.layer_slice(params["layers"], k)
+        p_k["layers"] = [lm.layer_slice(layers_k, i) for i in range(n_l)]
+        out.append(p_k)
+    return out
+
+
+def _train_loss(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
+                trials, batch):
+    """The tick loop of :func:`pipeline_train_loss` over per-trial
+    parameter dicts (see :func:`unstack_trials`). batch: tokens / labels
+    (K, M, mb_global, seq) tensors on the parameters' device. Returns the
+    (K,) per-trial losses, each the mean over its M slots."""
+    S, K, M = eng.n_stages, eng.n_trials, eng.n_microbatches
+    l_s = plan_stages(cfg, S).layers_per_stage
+    tokens, labels = batch["tokens"], batch["labels"]
+    mbg, seq = tokens.shape[-2], tokens.shape[-1]
+    pos = torch.arange(seq, device=tokens.device).expand(mbg, seq)
+    loss_fn = vp_loss if eng.vocab_parallel else plain_loss
+
+    def unit(x, s, k, m):
+        """One (stage, slot) pair: embed at stage 0, the stage's layers,
+        the loss at the last stage."""
+        p = trials[k]
+        if s == 0:
+            x = plain_embed(cfg, eng, p["embed"], tokens[k, m],
+                            opts.compute_dtype)
+        lo = s * l_s
+        x, _ = lm.stack_apply(
+            cfg, opts, p["layers"][lo:lo + l_s], x, pos=pos, mode="train",
+            layer_mask=[lo + i < cfg.n_layers for i in range(l_s)])
+        if s == S - 1:
+            return loss_fn(cfg, eng, p["final_norm"], p["head"], x,
+                           labels[k, m])
+        return x
+
+    # the reference's tick-level remat: each (stage, slot) pair keeps only
+    # its input and is recomputed in backward
+    remat = opts.remat and torch.is_grad_enabled()
+    losses = [[] for _ in range(K)]
+    acts = [None] * S  # stage s's output of the previous tick
+    for t in range(eng.n_ticks):
+        nxt = [None] * S
+        for s in range(S):
+            slot = t - s
+            if not 0 <= slot < eng.n_slots:
+                continue  # fill/drain bubble: masked in the reference
+            k, m = slot % K, slot // K
+            out = (checkpoint(unit, acts[s - 1] if s else None, s, k, m,
+                              use_reentrant=False, preserve_rng_state=False)
+                   if remat else unit(acts[s - 1] if s else None, s, k, m))
+            if s == S - 1:
+                losses[k].append(out)
+            else:
+                nxt[s] = out
+        acts = nxt
+    return torch.stack([sum(ls) for ls in losses]) / M
+
+
+def pipeline_train_loss(cfg: ArchConfig, opts: ModelOptions,
+                        eng: EngineConfig, params, batch):
+    """Runs the multi-trial pipelined forward; returns per-trial (loss, aux)
+    (K,) tensors (aux: the MoE term, zero for the dense family).
+
+    params: the trial-stacked dict (layers (K, Lp, ...), embed/tok
+    (K, Vp, D), head (K, D, Vp), final_norm (K, D)). batch: tokens / labels
+    (K, M, mb_global, seq), tensors or numpy. Each tick ``t`` advances stage
+    ``s`` on slot ``t - s`` (trial ``slot % K``, microbatch ``slot // K``);
+    bubble pairs are skipped. Differentiable w.r.t. ``params``.
+    """
+    batch = _train_batch(batch, params["final_norm"].device)
+    loss = _train_loss(cfg, opts, eng, unstack_trials(params), batch)
+    return loss, torch.zeros_like(loss)
+
+
+def _train_batch(batch, device):
+    """tokens / labels (tensors or numpy) as tensors on ``device``."""
+    return {n: (batch[n] if torch.is_tensor(batch[n])
+                else torch.from_numpy(np.ascontiguousarray(batch[n])))
+            .to(device) for n in ("tokens", "labels")}
+
+
+def _grad_leaves(params, grads):
+    """Per-trial (and per-layer) leaf tensors that alias ``params`` and
+    accumulate their gradients straight into the matching views of
+    ``grads``: slicing a stacked leaf inside autograd would materialize a
+    zero-filled full-size gradient per use (1.8 GB for the largest leaf at
+    full width)."""
+    def leaf(p, g):
+        t = p.detach().requires_grad_()
+        t.grad = g
+        return t
+
+    return tree_map(leaf, unstack_trials(params), unstack_trials(grads))
+
+
+def reduce_grads(cfg: ArchConfig, eng: EngineConfig, grads):
+    """Per-trial global gradient norm (K,) over the stacked gradient tree.
+    (On one device there is nothing to reduce across shards: the mean over
+    the global microbatch already is the data-parallel reduction.) Returns
+    (grads, grad_norm)."""
+    leaves = tree_leaves(grads)
+    k = leaves[0].shape[0]
+    sq = sum(torch.linalg.vector_norm(g.reshape(k, -1).float(), dim=1)
+             .square() for g in leaves)
+    return grads, torch.sqrt(sq)
+
+
+def make_train_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
+                    optimizer) -> Callable:
+    """The multi-trial pipelined train step.
+
+    Returns fn(params, opt_state, batch, hparams, step) -> (params,
+    opt_state, metrics): one ``backward()`` through the whole tick
+    schedule, the per-trial global grad norm, then the optimizer's
+    per-trial update — params and opt_state are updated in place and
+    returned. ``hparams`` holds (K,) per-trial hyperparameters (Hydra's
+    model-selection axis); metrics {"loss", "grad_norm"} are (K,) numpy
+    arrays. The gradient buffer (one per parameter leaf) is allocated at
+    the first call and reused.
+    """
+    bufs = {}
+
+    def step_fn(params, opt_state, batch, hparams, step):
+        if "grads" not in bufs:
+            bufs["grads"] = tree_map(torch.zeros_like, params)
+        grads = bufs["grads"]
+        for g in tree_leaves(grads):
+            g.zero_()
+        batch = _train_batch(batch, params["final_norm"].device)
+        loss_vec = _train_loss(cfg, opts, eng, _grad_leaves(params, grads),
+                               batch)
+        loss_vec.sum().backward()
+        grads, gnorm = reduce_grads(cfg, eng, grads)
+        params, opt_state = optimizer.update(params, grads, opt_state,
+                                             hparams, step, grad_norm=gnorm)
+        return params, opt_state, {
+            "loss": loss_vec.detach().cpu().numpy(),
+            "grad_norm": gnorm.cpu().numpy()}
+
+    return step_fn
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +429,7 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
     steps = torch.arange(qlen, device=dev)
     tok_out = torch.zeros(tokens.shape[:3], dtype=torch.int32, device=dev)
     val_out = torch.zeros(tokens.shape[:3], dtype=torch.float32, device=dev)
+    trials = unstack_trials(params)
     acts = [None] * S  # stage s's output of the previous tick
     for t in range(eng.n_ticks):
         nxt = [None] * S
@@ -238,7 +444,7 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
             else:
                 x = acts[s - 1]
             lo = s * l_s
-            p_layers = _rows(lm.layer_slice(params["layers"], k), lo, l_s)
+            p_layers = trials[k]["layers"][lo:lo + l_s]
             c = {"layers": {n: v[k, lo:lo + l_s]
                             for n, v in cache["layers"].items()},
                  "shared": None}
@@ -257,13 +463,6 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
                     y[:, -1:])
         acts = nxt
     return cache, tok_out, val_out
-
-
-def _rows(tree, lo: int, n: int):
-    """Layers [lo, lo+n) of a layer-stacked tree (views)."""
-    if isinstance(tree, dict):
-        return {k: _rows(v, lo, n) for k, v in tree.items()}
-    return tree[lo:lo + n]
 
 
 def make_serve_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,

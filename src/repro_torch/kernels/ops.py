@@ -1,13 +1,71 @@
 """Dispatch for the port's kernels.
 
-``paged_attention`` sends a CPU tensor to the plain PyTorch version and a
-CUDA tensor to the hand-written CUDA kernel — by the tensor's device alone:
-no environment switch and no fallback (a kernel that fails to build or
+Each op sends a CPU tensor to the plain PyTorch version and a CUDA tensor
+to the hand-written CUDA kernel — by the tensor's device alone: no
+environment switch and no fallback (a kernel that fails to build or
 launch raises).
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
+
+
+# ---------------------------------------------------------------------------
+# flash attention: kernel forward + chunked online-softmax backward (the
+# reference's ``_flash_core`` custom_vjp: the Pallas kernel has no AD rule,
+# and its backward is jax.vjp through the chunked jnp path)
+# ---------------------------------------------------------------------------
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the CUDA kernel on a CUDA tensor, the plain version on a CPU
+    one. Backward: autograd through ``layers.chunked_attention`` with
+    ``q_chunk = max(block_q, 128)`` and ``kv_chunk = max(block_k, 128)``,
+    recomputing the score blocks from (q, k, v) — as ``ops._flash_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kv_offset, block_q, block_k):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, kv_offset, block_q, block_k)
+        fn = (fa.flash_attention_plain if q.device.type == "cpu"
+              else fa.flash_attention_kernel)
+        return fn(q, k, v, causal=causal, window=window, kv_offset=kv_offset)
+
+    @staticmethod
+    def backward(ctx, ct):
+        from repro_torch.models.layers import chunked_attention
+        causal, window, kv_offset, block_q, block_k = ctx.args
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_()
+                       for t in ctx.saved_tensors)
+            out = chunked_attention(q, k, v, causal=causal, window=window,
+                                    kv_offset=kv_offset,
+                                    q_chunk=max(block_q, 128),
+                                    kv_chunk=max(block_k, 128))
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), ct)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    kv_offset: int = 0, kv_len=None, block_q: int = 512,
+                    block_k: int = 512):
+    """q (b, sq, hq, hd), k/v (b, sk, hkv, hd) -> (b, sq, hq, hd);
+    differentiable. GQA is handled in the kernel's indexing. ``kv_len``
+    (ragged decode) is not kernel-supported, as in the reference: callers
+    use the direct path for it. ``block_q`` / ``block_k`` set the
+    backward's chunking (the kernel's own tiles are fixed)."""
+    if kv_len is not None:
+        raise NotImplementedError("ragged kv_len uses the direct path")
+    return _FlashAttention.apply(q, k, v, causal, window, int(kv_offset),
+                                 block_q, block_k)
+
+
+# ---------------------------------------------------------------------------
+# paged attention: forward only (serving decode / append)
+# ---------------------------------------------------------------------------
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, kv_offset, kv_len, *,

@@ -9,7 +9,7 @@ the row's *live* table entries only and running the reference's
 online-softmax step in fp32 on each physical block staged in shared memory
 (one key per lane; block_size 4, 8, 16 or 32 and head_dim <= 128).
 
-Build and binding: at first use :func:`build` compiles the source with
+Build and binding: at first use ``kernels.build`` compiles the source with
 ``nvcc`` into a shared library under ``build/repro_torch/`` at the repo root
 (named by a hash of the source and flags, so an edited source rebuilds),
 and ``ctypes`` loads its plain C entry. The wrapper checks devices, dtypes,
@@ -25,21 +25,15 @@ on the card. ``ops.paged_attention`` picks between the two by device.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import build as kbuild
 from repro_torch.models.layers import attention_reference
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "paged_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 MAX_HEAD_DIM = 128  # 4 head dims per lane
 BLOCK_SIZES = (4, 8, 16, 32)  # one key per lane; compiled for each
 
@@ -50,34 +44,10 @@ launches = 0
 _lib = None
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libpaged_attention_{digest}.so"
-
-
-def build() -> str:
-    """Compile the kernel (no-op when the hashed library exists). Returns
-    nvcc's report (``-Xptxas=-v``: registers, shared memory, spills)."""
-    out = library_path()
-    if out.exists():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{res.stderr}")
-    os.replace(tmp, out)
-    return res.stderr
-
-
 def _entry():
     global _lib
     if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(library_path()))
+        lib = kbuild.load(SOURCE)
         fn = lib.paged_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_void_p])
@@ -150,7 +120,8 @@ def paged_attention_kernel(q, k_pool, v_pool, block_tables, kv_offset,
                   int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(hd),
                   torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"paged_attention launch failed: CUDA error {rc}")
+        raise kbuild.KernelLaunchError(
+            f"paged_attention launch failed: CUDA error {rc}")
     launches += 1
     return out
 

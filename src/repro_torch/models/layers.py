@@ -1,5 +1,6 @@
-"""Core dense layers in PyTorch: RMSNorm, rotary embeddings (1d / 2d-half),
-GQA attention (direct / chunked online-softmax) and the SwiGLU/GELU MLP.
+"""Core dense layers in PyTorch: RMS/layer norm, rotary embeddings (1d /
+2d-half), GQA attention (flash kernel / chunked online-softmax / direct) and
+the SwiGLU/GELU MLP.
 
 Port of ``repro/models/layers.py`` (attention family only — MoE, Mamba and
 M-RoPE wait for their slices). Functions keep the reference's tensor layouts
@@ -14,20 +15,24 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelOptions:
-    """Execution knobs (not architecture): activation precision and the
-    attention implementation. (Parameter dtype is the caller's: whatever
-    the params were made in; the reference's ``param_dtype`` and remat
-    knobs are not ported.)"""
+    """Execution knobs (not architecture): activation precision, remat and
+    the attention implementation. (Parameter dtype is the caller's:
+    whatever the params were made in; the reference's ``param_dtype`` is
+    not ported.)"""
 
     compute_dtype: torch.dtype = torch.float32
+    remat: bool = False  # activation-checkpoint each block (train mode)
     attn_q_chunk: int = 2048  # online-softmax chunking of the direct path
     attn_kv_chunk: int = 1024
+    use_flash_kernel: bool = False  # full-sequence attention through
+    # kernels.ops.flash_attention (the CUDA kernel on a card)
     use_paged_kernel: bool = False  # paged decode/append attends straight
     # from the block pool (kernels/paged_attention.py) instead of gathering
     # each row's full logical K/V view
@@ -43,6 +48,14 @@ def rms_norm(x, w, eps: float = 1e-5):
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(dt) * w
+
+
+def layer_norm(x, w, b, eps: float = 1e-5):
+    dt = x.dtype
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(dt) * w + b
 
 
 # ---------------------------------------------------------------------------
@@ -150,8 +163,15 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     """Flash-style online-softmax attention, O(chunk) memory, GQA aware.
 
     Outer loop over q chunks, inner loop over kv chunks with running fp32
-    (max, denom, accum) — the reference's ``lax.scan`` as a Python loop
-    (forward only: the port serves, it does not train yet).
+    (max, denom, accum) — the reference's ``lax.scan`` as a Python loop.
+    Differentiable: when autograd records, each q chunk is a
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` on
+    ``q_block``), so backward recomputes one chunk's score blocks at a time
+    instead of stashing all of them. Fully masked rows (outside a window,
+    or padding past ``sq``) give 0 and a zero, not NaN, gradient: masked
+    scores enter ``exp`` as exact ``-inf`` and the final division is by
+    ``l`` or 1 where ``l == 0`` (``l >= 1`` for any row with a live key,
+    so this equals the reference's ``max(l, 1e-30)``).
     """
     b, sq, hq, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -167,11 +187,9 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     if kv_len is None:
         kv_len = torch.full((b,), sk, dtype=torch.int32, device=q.device)
     qpos_all = _positions(kv_offset, sq_p, q.device)
-    blocks = []
-    for qi in range(n_q):
-        q0 = qi * q_chunk
-        qg = qp[:, q0:q0 + q_chunk].reshape(b, q_chunk, hkv, g, hd)
-        qpos = qpos_all[:, q0:q0 + q_chunk]
+
+    def q_block(q_blk, qpos, kp, vp):
+        qg = q_blk.reshape(b, q_chunk, hkv, g, hd)
         m = torch.full((b, hkv, g, q_chunk), float("-inf"),
                        device=q.device)
         l = torch.zeros((b, hkv, g, q_chunk), device=q.device)
@@ -187,27 +205,42 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
             m_new = torch.maximum(m, s.amax(dim=-1))
             m_safe = torch.where(torch.isfinite(m_new), m_new,
                                  torch.zeros_like(m_new))
-            p = torch.exp(s - m_safe[..., None]) * msk
-            alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
-                                torch.zeros_like(m))
+            p = torch.exp(s - m_safe[..., None])  # masked: exp(-inf) = 0
+            alpha = torch.exp(m - m_safe)  # 0 while m is still -inf
             l = l * alpha + p.sum(dim=-1)
             acc = acc * alpha[..., None] + torch.einsum(
                 "bhgqk,bkhd->bhgqd", p, v_blk.float())
             m = m_new
-        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        out = acc / torch.where(l > 0, l, torch.ones_like(l))[..., None]
         # (b, hkv, g, qc, hd) -> (b, qc, hq, hd)
-        blocks.append(out.permute(0, 3, 1, 2, 4).reshape(b, q_chunk, hq, hd)
-                      .to(q.dtype))
+        return out.permute(0, 3, 1, 2, 4).reshape(b, q_chunk, hq,
+                                                  hd).to(q.dtype)
+
+    record = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    blocks = []
+    for qi in range(n_q):
+        q0 = qi * q_chunk
+        args = (qp[:, q0:q0 + q_chunk], qpos_all[:, q0:q0 + q_chunk], kp, vp)
+        blocks.append(checkpoint(q_block, *args, use_reentrant=False,
+                                 preserve_rng_state=False)
+                      if record else q_block(*args))
     return torch.cat(blocks, dim=1)[:, :sq]
 
 
 def attention(q, k, v, *, causal: bool, window: int = 0, kv_offset=0,
               kv_len=None, opts: ModelOptions):
-    """Dispatch: direct softmax when the score tensor is small (decode
-    scores are linear in cache length), else chunked online softmax. (The
-    reference's flash-kernel branch serves training and static prefill
-    only; it ports with Hydra training.)"""
+    """Dispatch, under the reference's conditions: the flash kernel
+    (``opts.use_flash_kernel``, more than one query, no ragged ``kv_len``,
+    one scalar offset — training and full-sequence prefill); else direct
+    softmax when the score tensor is small (decode scores are linear in
+    cache length); else chunked online softmax."""
     sq, sk = q.shape[1], k.shape[1]
+    if opts.use_flash_kernel and sq > 1 and kv_len is None \
+            and not (torch.is_tensor(kv_offset) and kv_offset.ndim > 0):
+        from repro_torch.kernels import ops as kernel_ops
+        return kernel_ops.flash_attention(
+            q, k, v, causal=causal, window=window, kv_offset=int(kv_offset))
     if sq == 1 or sq * sk <= 512 * 512:
         return attention_reference(q, k, v, causal=causal, window=window,
                                    kv_offset=kv_offset, kv_len=kv_len)

@@ -1,4 +1,5 @@
-"""Stacked-layer language model in PyTorch: init, forward, greedy oracle.
+"""Stacked-layer language model in PyTorch: init, forward, loss, greedy
+oracle.
 
 Port of ``repro/models/lm.py`` (dense family). As in the reference, every
 layer leaf carries a leading layer axis so the pipeline engine can run a
@@ -15,11 +16,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ModelOptions
+from repro_torch.tree import tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -79,25 +82,23 @@ def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
     through ``np.asarray``) -> the same nesting of tensors on ``device``.
     Floating leaves are cast to ``dtype`` when given. Serves the
     single-model tree and the K-stacked trial tree alike (layouts match)."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device, dtype)
-                for k, v in tree.items()}
-    arr = np.array(tree)  # a writable copy (JAX hands out read-only views)
-    if arr.dtype.kind == "f" and arr.dtype.itemsize != 4:
-        arr = arr.astype(np.float32)  # bf16 (ml_dtypes) has no torch bridge
-    t = torch.from_numpy(arr).to(device)
-    if dtype is not None and t.is_floating_point():
-        t = t.to(dtype)
-    return t
+    def leaf(x):
+        if x is None:
+            return None
+        arr = np.array(x)  # a writable copy (JAX hands out read-only views)
+        if arr.dtype.kind == "f" and arr.dtype.itemsize != 4:
+            arr = arr.astype(np.float32)  # bf16 (ml_dtypes): no torch bridge
+        t = torch.from_numpy(arr).to(device)
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t
+
+    return tree_map(leaf, tree)
 
 
 def layer_slice(tree, i):
     """Layer ``i`` of a layer-stacked parameter/cache tree (views)."""
-    if isinstance(tree, dict):
-        return {k: layer_slice(v, i) for k, v in tree.items()}
-    return tree[i]
+    return tree_map(lambda t: t[i], tree)
 
 
 # ---------------------------------------------------------------------------
@@ -127,24 +128,34 @@ def stack_apply(cfg: ArchConfig, opts: ModelOptions, layer_params, x, *,
                 write_mask=None):
     """Apply a contiguous slice of the layer stack.
 
-    layer_params: leaves with a leading local-layer axis (n_local, ...).
+    layer_params: a list of per-layer parameter dicts (views into the
+    layer-stacked leaves; see :func:`layer_slice`).
     cache: {"layers": {"k", "v"} stacked per layer, "shared": None} or None;
     with ``block_tables`` the stacked leaves are per-layer block *pools*.
     layer_mask: (n_local,) bools — False = padded no-op layer (skipped).
+    In train mode with ``opts.remat`` each layer is a
+    ``torch.utils.checkpoint`` — the reference's ``jax.checkpoint`` of the
+    scan body: backward keeps each layer's input and recomputes the rest.
     Returns (y, cache); cache leaves are updated in place.
     """
-    n_local = layer_params["ln1"].shape[0]
+    n_local = len(layer_params)
     if layer_mask is None:
         layer_mask = [True] * n_local
     block = B.block_fn_for(cfg)
+    remat = mode == "train" and opts.remat
     for i in range(n_local):
         if not layer_mask[i]:
             continue
+        p_i = layer_params[i]
         c_i = None if cache is None else layer_slice(cache["layers"], i)
-        x, _ = block(cfg, opts, layer_slice(layer_params, i), x, pos=pos,
-                     cache=c_i, kv_offset=kv_offset, mode=mode,
-                     window=window, block_tables=block_tables,
-                     write_mask=write_mask)
+
+        def run(x, p_i=p_i, c_i=c_i):
+            return block(cfg, opts, p_i, x, pos=pos, cache=c_i,
+                         kv_offset=kv_offset, mode=mode, window=window,
+                         block_tables=block_tables, write_mask=write_mask)[0]
+
+        x = (checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+             if remat and torch.is_grad_enabled() else run(x))
     return x, cache
 
 
@@ -170,9 +181,29 @@ def lm_logits(cfg: ArchConfig, params, x):
     return x @ head
 
 
+def cross_entropy(logits, labels, mask=None):
+    """Mean CE over unmasked positions; fp32 accumulation."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
 # ---------------------------------------------------------------------------
-# Whole-model entry point (single-device oracle)
+# Whole-model entry points (single-device oracle)
 # ---------------------------------------------------------------------------
+
+
+def default_positions(cfg: ArchConfig, batch: dict, b: int, s: int):
+    """(b, s) positions 0..s-1 of a full-sequence batch (M-RoPE's three
+    streams are not ported)."""
+    if cfg.rope == "mrope":
+        raise NotImplementedError("rope='mrope' is not ported yet")
+    return torch.arange(s, device=batch["tokens"].device).expand(b, s)
 
 
 def forward(cfg: ArchConfig, opts: ModelOptions, params, batch: dict,
@@ -188,16 +219,25 @@ def forward(cfg: ArchConfig, opts: ModelOptions, params, batch: dict,
     if mode == "decode":
         pos = kv_offset[:, None]  # (b, 1) absolute positions
     else:
-        pos = torch.arange(s, device=tokens.device).expand(b, s)
+        pos = default_positions(cfg, batch, b, s)
     x = embed_tokens(cfg, params["embed"], tokens,
                      compute_dtype=opts.compute_dtype)
     n_stack = params["layers"]["ln1"].shape[0]
     if layer_mask is None:
         layer_mask = [i < cfg.n_layers for i in range(n_stack)]
-    y, cache = stack_apply(cfg, opts, params["layers"], x, pos=pos,
+    layers = [layer_slice(params["layers"], i) for i in range(n_stack)]
+    y, cache = stack_apply(cfg, opts, layers, x, pos=pos,
                            mode=mode, cache=cache, kv_offset=kv_offset,
                            window=window, layer_mask=layer_mask)
     return lm_logits(cfg, params, y), cache
+
+
+def loss_fn(cfg: ArchConfig, opts: ModelOptions, params, batch: dict):
+    """Mean next-token CE of a train batch ({tokens, labels[, loss_mask]})
+    through the single-device forward (the dense family has no MoE aux
+    term)."""
+    logits, _ = forward(cfg, opts, params, batch, mode="train")
+    return cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
 
 
 def greedy_generate(cfg: ArchConfig, opts: ModelOptions, params, prompt,
