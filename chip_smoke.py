@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with a CUDA card (H100):
     python3 chip_smoke.py [--out results.json]
 
 It builds the hand-written CUDA kernels from the checkout's sources (one
-nvcc per source, all started together) and runs eight phases, each a hard
+nvcc per source, all started together) and runs ten phases, each a hard
 assert; it exits 0 only if every phase passed, and exits non-zero without
 a result when no CUDA device is visible.
 
@@ -47,7 +47,28 @@ a result when no CUDA device is visible.
    remat, flash kernel, fp32. Both trials in one gang, K1's launch count
    equal to the schedule's, 0 restarts, finite losses; step time, tokens/s,
    model FLOP/s, K1's share of step time and peak memory are recorded.
-8. A {"kernels": [...]} line for every ported kernel, the card line, and
+8. The selective-scan kernel (K3) against its plain version at the SSM
+   serving path's largest shape (b 2, s 512, d_inner 8192, d_state 16,
+   nonzero h0) in fp32 (tol 1e-4) and with bf16 inputs (tol 3e-2), a
+   ragged s 37, a strided C (the last columns of x_proj's output, as the
+   model passes it) and a d_state 8 case; y and h both; times as phase 2,
+   bound by bytes; the op's gradients against autograd of the plain
+   version.
+9. SSM serving exactness: falcon-mamba-7b at full width, depth cut to 2
+   layers, fp32 weights and cache, the dense ServeEngine (K3 in every
+   append), 2 stages, 2 slots x microbatch 2, 7 staggered requests of
+   17-70 prompt tokens (more than the 4 cells: slots recycle): every
+   request's greedy tokens equal the oracle's (``lm.greedy_generate``
+   through the chunked scan, independent of K3), K3's launches equal
+   append calls x slots x layers, and every reset row is zero.
+10. The SSM serving path at full size: falcon-mamba-7b, all 64 layers,
+   bf16 weights and conv cache (fp32 SSM state), dense engine, split
+   admission, 2 stages, 2 slots x microbatch 2; the same 8-request
+   traffic as phase 5. Every request completes with its budget, K3's
+   launch count equals 128 x append calls, a second run gives the same
+   tokens; wall, tokens/s, ms per call, K3's share of wall, peak memory
+   and one profiled decode call are recorded.
+11. A {"kernels": [...]} line for every ported kernel, the card line, and
    the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 from __future__ import annotations
@@ -70,6 +91,7 @@ PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # dense, same
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 HQ, HKV, HD, BS = 32, 2, 128, 16  # chatglm3-6b attention, serving block
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # test_kernels_flash
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # test_kernels_mamba
 
 
 def say(*parts) -> None:
@@ -765,6 +787,281 @@ def phase7(fa, dev, card):
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the selective-scan kernel vs its plain version
+# ---------------------------------------------------------------------------
+
+# name, b, s, di, n, strided C (C as the last n columns of a (b, s, r + 2n)
+# projection with r = 256, falcon-mamba-7b's dt rank)
+SCAN_CASES = [
+    ("path512", 2, 512, 8192, 16, False),
+    ("ragged_s37", 2, 37, 8192, 16, False),
+    ("strided_c", 2, 64, 8192, 16, True),
+    ("n8_s7", 1, 7, 64, 8, False),
+]
+
+
+def scan_inputs(dev, dt, b, s, di, n, strided, gen):
+    """The reference test's distributions: decays in (0, 1], small inputs,
+    a nonzero incoming state."""
+    da = torch.exp(-(torch.randn(b, s, di, n, generator=gen, device=dev)
+                     * 0.3).abs()).to(dt)
+    dbx = (torch.randn(b, s, di, n, generator=gen, device=dev) * 0.2).to(dt)
+    if strided:
+        proj = torch.randn(b, s, 256 + 2 * n, generator=gen, device=dev)
+        cmat = proj.to(dt)[..., 256 + n:]
+        assert not cmat.is_contiguous()
+    else:
+        cmat = torch.randn(b, s, n, generator=gen, device=dev).to(dt)
+    h0 = torch.randn(b, di, n, generator=gen, device=dev) * 0.1
+    return da, dbx, cmat, h0
+
+
+def phase8(ms, ops, dev, flush, card):
+    results = []
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for dt in (torch.float32, torch.bfloat16):
+        for name, b, s, di, n, strided in SCAN_CASES:
+            args = scan_inputs(dev, dt, b, s, di, n, strided, gen)
+            y, h = ms.mamba_scan_kernel(*args)
+            torch.cuda.synchronize()
+            y2, h2 = ms.mamba_scan_plain(*args)
+            assert y.dtype == dt and h.dtype == torch.float32, name
+            assert torch.isfinite(y).all() and torch.isfinite(h).all(), name
+            err = max(float((y.float() - y2.float()).abs().max()),
+                      float((h - h2).abs().max()))
+            assert err < SCAN_TOL[dt], f"{name}/{dt}: max |kernel - plain| " \
+                f"{err}"
+            rec = dict(card=card, case=name, dtype=str(dt).split(".")[-1],
+                       b=b, s=s, di=di, n=n, strided_c=strided,
+                       max_abs_err=err, tol=SCAN_TOL[dt])
+            if name == "path512":
+                es = args[0].element_size()
+                # each input read once, each output written once
+                nbytes = (2 * b * s * di * n * es + b * s * n * es
+                          + b * di * n * 4 * 2 + b * s * di * es)
+                ops_n = 4 * b * s * di * n  # 2 FMAs per (t, channel, state)
+                t_bytes = nbytes / HBM_BYTES_PER_S
+                t_ops = ops_n / PEAK_OPS[torch.float32]  # fp32 arithmetic
+                rec.update(
+                    ms=cuda_ms(lambda: ms.mamba_scan_kernel(*args), flush),
+                    plain_ms=cuda_ms(lambda: ms.mamba_scan_plain(*args),
+                                     flush, iters=10, warmup=2),
+                    library_ms=None,
+                    bound_ms=1e3 * max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    bytes=nbytes, ops=ops_n)
+            results.append(rec)
+            say("phase 8:", json.dumps(rec))
+            del args, y, h, y2, h2
+    # gradients: the op (kernel forward, backward through the plain
+    # version) against autograd of the plain version
+    args = scan_inputs(dev, torch.float32, 2, 37, 256, 16, True, gen)
+    cts = (torch.randn(2, 37, 256, generator=gen, device=dev),
+           torch.randn(2, 256, 16, generator=gen, device=dev))
+    grads = []
+    for fn in (ops.mamba_scan, ms.mamba_scan_plain):
+        leaves = [t.detach().requires_grad_() for t in args]
+        torch.autograd.backward(fn(*leaves), cts)
+        grads.append([t.grad for t in leaves])
+    gerr = max(float((a - b_).abs().max()) / max(1.0, float(b_.abs().max()))
+               for a, b_ in zip(*grads))
+    assert all(torch.isfinite(g).all() for g in grads[0])
+    assert gerr < 1e-4, f"scan gradient error {gerr}"
+    say("phase 8: op gradients vs plain autograd, max relative error",
+        gerr)
+    return results, gerr
+
+
+# ---------------------------------------------------------------------------
+# Phases 9 and 10: SSM serving through the dense engine
+# ---------------------------------------------------------------------------
+
+
+def ssm_engine(cfg, dtype, dev, seed, max_seq):
+    """falcon-mamba-7b behind the dense ServeEngine as launch/serve.py
+    builds it: 2 stages, 2 slots x microbatch 2, split admission with 2
+    prefill chunks, K3 in every append."""
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.partitioner import plan_stages
+    from repro_torch.models.layers import ModelOptions
+    from repro_torch.serve import ServeEngine
+
+    eng = pl.EngineConfig(n_trials=1, n_microbatches=2, microbatch=2,
+                          n_stages=2, max_seq=max_seq, cache_dtype=dtype,
+                          prefill_chunks=2)
+    opts = ModelOptions(compute_dtype=dtype, use_mamba_kernel=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = pl.init_trial_params(cfg, eng, plan_stages(cfg, eng.n_stages),
+                                  gen, dtype=dtype, device=dev)
+    return eng, opts, params, lambda: ServeEngine(cfg, eng, params, opts,
+                                                  device=dev)
+
+
+def phase9(ms, dev, card):
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.layers import ModelOptions
+    from repro_torch.serve import Request
+
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=2)
+    max_seq = 80
+    eng, _, params, make = ssm_engine(cfg, torch.float32, dev, 9, max_seq)
+    rng = np.random.default_rng(9)
+    shapes = [(40, 4), (70, 3), (33, 5), (64, 6), (17, 2), (50, 4), (29, 3)]
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, (p,)).astype(np.int32),
+                    g, arrival=0.5 * i) for i, (p, g) in enumerate(shapes)]
+    engine = make()
+    appends, resets = [], []
+    step, reset = engine.append_step, engine.reset_fn
+
+    def counted_append(params_, cache, batch):
+        appends.append(batch["tokens"].shape[-1])
+        return step(params_, cache, batch)
+
+    def checked_reset(cache, mask):
+        cache = reset(cache, mask)
+        for k, g, b in torch.as_tensor(mask).nonzero().tolist():
+            for buf in cache["layers"].values():
+                assert not buf[k, g, :, b].any(), "a reset row is not zero"
+        resets.append(int(np.asarray(mask).sum()))
+        return cache
+
+    engine.append_step, engine.reset_fn = counted_append, checked_reset
+    ms.launches = 0  # count this path's launches only
+    comps = engine.run([r.clone() for r in reqs])
+    torch.cuda.synchronize()
+    launches = ms.launches
+    expected = len(appends) * eng.n_slots * cfg.n_layers
+    assert min(appends) > 1  # every chunk is a scan (s == 1 is a step)
+    assert launches == expected > 0, (launches, expected)
+    assert sum(resets) == len(reqs) > engine.batcher.n_cells  # recycled
+    p1 = lm.layer_slice(params, 0)  # vocab 65024 is already a multiple of 2
+    mismatches = 0
+    for r, c in zip(reqs, comps):
+        want = lm.greedy_generate(cfg, ModelOptions(), p1, r.prompt,
+                                  r.max_new_tokens, max_seq, torch.float32)
+        mismatches += sum(a != b for a, b in zip(c.tokens, want))
+        assert c.tokens == want, f"request {r.rid}: {c.tokens} != {want}"
+    rec = dict(card=card, layers=cfg.n_layers, d_model=cfg.d_model,
+               requests=len(comps), tokens=sum(len(c.tokens) for c in comps),
+               mismatches=mismatches, calls=engine.stats.calls,
+               append_calls=len(appends), ticks=engine.stats.ticks,
+               kernel_launches=launches, expected_launches=expected,
+               reset_rows=sum(resets))
+    say("phase 9: full-width 2-layer fp32 falcon-mamba-7b dense engine vs "
+        "single-device oracle (chunked scan):", json.dumps(rec))
+    return rec
+
+
+def phase10(ms, dev, card):
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Request
+
+    cfg = get_config("falcon-mamba-7b")
+    bf16 = torch.bfloat16
+    gen_len, max_seq = 32, 1024 + 32
+    t0 = time.perf_counter()
+    eng, _, params, make = ssm_engine(cfg, bf16, dev, 0, max_seq)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(4)  # phase 5's traffic
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, (int(p),))
+                    .astype(np.int32), gen_len, arrival=float(i))
+            for i, p in enumerate(rng.integers(128, 1025, 8))]
+
+    times = {"decode": [], "append": []}
+    append_tokens = []
+
+    def timed(name, step):
+        def run(params_, cache, batch):
+            t = time.perf_counter()
+            out = step(params_, cache, batch)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t)
+            if name == "append":
+                append_tokens.append(int(batch["active"].sum())
+                                     * batch["tokens"].shape[-1])
+            return out
+        return run
+
+    engine = make()
+    engine.decode_step = timed("decode", engine.decode_step)
+    engine.append_step = timed("append", engine.append_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms.launches = 0  # count the main path's launches only
+    t0 = time.perf_counter()
+    comps = engine.run([r.clone() for r in reqs])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ms.launches
+    peak = torch.cuda.max_memory_allocated()
+    st = engine.stats
+    assert [c.rid for c in comps] == [r.rid for r in reqs]
+    for r, c in zip(reqs, comps):
+        assert len(c.tokens) == r.max_new_tokens, (r.rid, len(c.tokens))
+    expected = len(times["append"]) * eng.n_slots * cfg.n_layers
+    assert launches == expected > 0, (launches, expected)
+
+    # K3's share of wall time, from a second run of the same trace with
+    # CUDA events around each launch (kept out of the timed run above)
+    real, events = ms.mamba_scan_kernel, []
+
+    def evented(*args, **kw):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = real(*args, **kw)
+        e.record()
+        events.append((s, e))
+        return out
+
+    ms.mamba_scan_kernel = evented
+    try:
+        again = make()
+        t1 = time.perf_counter()
+        comps2 = again.run([r.clone() for r in reqs])
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t1
+    finally:
+        ms.mamba_scan_kernel = real
+    kernel_s = sum(s.elapsed_time(e) for s, e in events) / 1e3
+    assert [c.tokens for c in comps2] == [c.tokens for c in comps], \
+        "the same trace gave different tokens on a second run"
+    ops_per_decode, busy_ms = profile_decode_call(again, reqs[0])
+    decode_ms = 1e3 * float(np.median(times["decode"]))
+    rec = dict(
+        card=card, layers=cfg.n_layers, d_model=cfg.d_model,
+        d_inner=cfg.ssm.d_inner(cfg.d_model), dtype="bfloat16",
+        params=cfg.param_count(), stages=eng.n_stages,
+        slots=eng.n_microbatches, microbatch=eng.microbatch,
+        requests=len(comps), prompt_tokens=st.prompt_tokens,
+        tokens_generated=st.tokens_generated, ticks=st.ticks,
+        calls=st.calls, decode_calls=len(times["decode"]),
+        append_calls=len(times["append"]), kernel_launches=launches,
+        expected_launches=expected, wall_s=wall,
+        generated_tok_per_s=st.tokens_generated / wall,
+        decode_ms_per_call=decode_ms,
+        decode_ms_per_call_mean=1e3 * float(np.mean(times["decode"])),
+        append_ms_per_call=1e3 * float(np.median(times["append"])),
+        append_ms_per_call_mean=1e3 * float(np.mean(times["append"])),
+        prefill_tokens_per_s=sum(append_tokens) / sum(times["append"]),
+        max_memory_allocated_gb=peak / 1e9,
+        kernel_share_of_wall=kernel_s / wall2, kernel_s=kernel_s,
+        kernel_ms_per_launch=1e3 * kernel_s / max(len(events), 1),
+        host_ops_per_decode_call=ops_per_decode,
+        decode_device_busy_ms=busy_ms,
+        decode_device_idle_share=(None if busy_ms is None
+                                  else 1.0 - busy_ms / decode_ms),
+        instrumented_wall_s=wall2, param_init_s=init_s,
+        ttft_p50_ticks=st.summary().get("ttft_p50"))
+    say("phase 10: full falcon-mamba-7b bf16 dense serving:",
+        json.dumps(rec))
+    return rec, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write every measured "
@@ -777,6 +1074,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
 
@@ -788,7 +1086,7 @@ def main(argv=None) -> int:
     say(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; TF32 off for matmul and cuDNN")
     t0 = time.perf_counter()
-    builds = [(m.SOURCE, kbuild.start(m.SOURCE)) for m in (pa, fa)]
+    builds = [(m.SOURCE, kbuild.start(m.SOURCE)) for m in (pa, fa, ms)]
     for source, proc in builds:  # one nvcc per source, all started at once
         report = kbuild.finish(source, proc)
         say(f"phase 1: built {kbuild.library_path(source).name} from "
@@ -797,7 +1095,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 say("  nvcc:", line.strip())
     build_s = time.perf_counter() - t0
-    say(f"phase 1: both kernels built in {build_s:.2f} s")
+    say(f"phase 1: {len(builds)} kernels built in {build_s:.2f} s")
 
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
     p2 = phase2(pa, dev, flush, card)
@@ -816,11 +1114,24 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     p7, fa_launches = phase7(fa, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
+    p8, scan_grad_err = phase8(ms, ops, dev, flush, card)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    p9 = phase9(ms, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    p10, ms_launches = phase10(ms, dev, card)
 
     row = next(c for c in p2
                if c["case"] == "decode" and c["dtype"] == "bfloat16")
     frow = next(c for c in p3
                 if c["case"] == "train2048" and c["dtype"] == "float32")
+    srow = next(c for c in p8
+                if c["case"] == "path512" and c["dtype"] == "float32")
     kernels = {"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -835,14 +1146,22 @@ def main(argv=None) -> int:
         "launches": fa_launches, "max_abs_err": frow["max_abs_err"],
         "ms": frow["ms"], "plain_ms": frow["plain_ms"],
         "bound_ms": frow["bound_ms"], "bound_by": frow["bound_by"],
-        "library_ms": frow["library_ms"]}]}
+        "library_ms": frow["library_ms"]}, {
+        "name": "mamba_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:62",
+        "launches": ms_launches, "max_abs_err": srow["max_abs_err"],
+        "ms": srow["ms"], "plain_ms": srow["plain_ms"],
+        "bound_ms": srow["bound_ms"], "bound_by": srow["bound_by"],
+        "library_ms": None}]}
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(
             card=card, torch=torch.__version__, cuda=torch.version.cuda,
             build_s=build_s, phase2=p2, phase3=p3, phase4=p4, phase5=p5,
-            phase6=p6, phase7=p7, kernels=kernels["kernels"]), indent=1))
+            phase6=p6, phase7=p7, phase8=p8, phase8_grad_rel_err=scan_grad_err,
+            phase9=p9, phase10=p10, kernels=kernels["kernels"]), indent=1))
     say(json.dumps(kernels))
     say("card:", card_line())
     say(json.dumps({"ok": True, "device": {

@@ -43,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.partitioner import StagePlan, plan_stages
+from repro_torch.models import blocks as B
 from repro_torch.models import lm
 from repro_torch.models.layers import ModelOptions
 from repro_torch.tree import tree_leaves, tree_map
@@ -58,10 +59,11 @@ class EngineConfig:
     """Static configuration of one Hydra gang (same-architecture trials).
 
     In serving the K trial rows double as the co-serving axis: each row
-    holds one model variant's weights and pool, and the serve engine routes
-    per-arch request streams into the matching rows. The reference's
-    mesh-axis names, pod axis, FSDP, sliding-window serving and the host
-    spill tier are not ported.
+    holds one model variant's weights and cache, and the serve engine
+    routes per-arch request streams into the matching rows. The reference's
+    mesh-axis names, pod axis, FSDP and the host spill tier are not ported;
+    ``window`` exists so the serve engine can reject it as the reference
+    does (sliding-window serving itself is not ported yet).
     """
 
     n_trials: int  # K — concurrent model variants
@@ -71,7 +73,9 @@ class EngineConfig:
     data_size: int = 1  # logical data shards (pool partitions per trial)
     max_seq: int = 0  # per-request token capacity
     cache_dtype: torch.dtype = torch.bfloat16
-    paged: bool = False  # KV in a shared block pool (the only ported mode)
+    window: int = 0  # sliding attention window in serving (not ported)
+    paged: bool = False  # KV in a shared block pool; False = dense per-slot
+    # cache strips (the only layout for the ssm family)
     block_size: int = 16  # tokens per block
     n_blocks: int = 0  # pool size PER TRIAL; each data shard owns an equal
     # slice of n_blocks / data_size blocks
@@ -95,6 +99,16 @@ class EngineConfig:
     @property
     def bubble_fraction(self) -> float:
         return (self.n_stages - 1) / self.n_ticks
+
+    @property
+    def cache_groups(self) -> int:
+        """Distinct dense caches per trial in serving: chunked prefill
+        shares one cache per request group across its sequence-chunk
+        slots (the serve engine sets ``prefill_chunks`` to 1, so each of
+        its microbatch slots owns one)."""
+        if self.prefill_chunks > 1:
+            return self.n_microbatches // self.prefill_chunks
+        return self.n_microbatches
 
     def padded_vocab(self, vocab: int) -> int:
         s = self.n_stages
@@ -212,7 +226,7 @@ def unstack_trials(params):
     """The trial-stacked parameter dict -> a list over K of per-trial dicts
     whose ``"layers"`` is a list of per-layer dicts (all views)."""
     n_k = params["final_norm"].shape[0]
-    n_l = params["layers"]["ln1"].shape[1]
+    n_l = tree_leaves(params["layers"])[0].shape[1]
     out = []
     for k in range(n_k):
         p_k = lm.layer_slice({n: v for n, v in params.items()
@@ -360,16 +374,20 @@ def make_train_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
 
 
 # ---------------------------------------------------------------------------
-# Serving: pipelined decode / append over the paged pool
+# Serving: pipelined decode / append over dense strips or the paged pool
 # ---------------------------------------------------------------------------
 
 
-def _check_paged_support(cfg: ArchConfig, eng: EngineConfig) -> None:
-    if not eng.paged:
-        raise NotImplementedError("dense (non-paged) serving is not ported "
-                                  "yet; set EngineConfig.paged")
-    if cfg.family != "dense":
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+
+
+def _check_paged_support(cfg: ArchConfig, eng: EngineConfig) -> None:
+    if cfg.family in ("ssm", "hybrid") or cfg.hybrid is not None:
+        raise ValueError(
+            "paged KV-cache supports attention-family archs only (SSM/conv "
+            "states are O(1) per row and have nothing to page)")
     if eng.n_blocks < 1:
         raise ValueError("paged serving needs n_blocks >= 1")
     if eng.n_blocks % eng.data_size:
@@ -378,15 +396,30 @@ def _check_paged_support(cfg: ArchConfig, eng: EngineConfig) -> None:
 
 
 def serve_cache_struct(cfg: ArchConfig, eng: EngineConfig, device=None):
-    """The serving pools: one per (trial, layer), shared by every slot cell
-    — leaves (K, Lp, n_blocks, block_size, h_kv, hd), zero-filled; data
-    shard ``i`` owns blocks ``[i·n_blocks/dp, (i+1)·n_blocks/dp)``."""
-    _check_paged_support(cfg, eng)
+    """The serving caches, zero-filled.
+
+    Dense layout: layer leaves (K, cache_groups, Lp, mb_global, ...) — one
+    strip per (trial, slot group, layer, row): K/V (max_seq, h_kv, hd) for
+    the attention family, the fp32 SSM state (di, n) and the conv window
+    (d_conv-1, di) for the ssm family. Paged layout (``eng.paged``): one
+    pool per (trial, layer), shared by every slot cell — leaves (K, Lp,
+    n_blocks, block_size, h_kv, hd); data shard ``i`` owns blocks
+    ``[i·n_blocks/dp, (i+1)·n_blocks/dp)``."""
+    _check_family(cfg)
     plan = plan_stages(cfg, eng.n_stages)
-    shape = (eng.n_trials, plan.padded_layers, eng.n_blocks, eng.block_size,
-             cfg.n_kv_heads, cfg.head_dim)
-    return {"layers": {n: torch.zeros(shape, dtype=eng.cache_dtype,
-                                      device=device) for n in ("k", "v")},
+    if eng.paged:
+        _check_paged_support(cfg, eng)
+        shape = (eng.n_trials, plan.padded_layers, eng.n_blocks,
+                 eng.block_size, cfg.n_kv_heads, cfg.head_dim)
+        return {"layers": {n: torch.zeros(shape, dtype=eng.cache_dtype,
+                                          device=device)
+                           for n in ("k", "v")},
+                "shared": None}
+    one = B.layer_cache_shape(cfg, eng.mb_global, eng.max_seq,
+                              eng.cache_dtype)
+    lead = (eng.n_trials, eng.cache_groups, plan.padded_layers)
+    return {"layers": {n: torch.zeros(lead + shape, dtype=dt, device=device)
+                       for n, (shape, dt) in one.items()},
             "shared": None}
 
 
@@ -404,26 +437,37 @@ def global_block_tables(eng: EngineConfig, tables):
 
 def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
                    params, cache, batch, mode: str):
-    """One pipelined serving call over the paged pool.
+    """One pipelined serving call over dense strips or the paged pool.
 
     decode: batch = {tokens (K,M,mbg,1), positions (K,M,mbg)} — one new token
     per row at its cache depth. append: tokens (K,M,mbg,qlen) inserted per
-    row starting at ``positions`` (chunked prefill at ragged depths). Both
-    carry ``block_tables`` (K,M,mbg,width) shard-local ids and an optional
-    ``active`` (K,M,mbg) bool row mask: inactive rows compute but never
-    write the pool. Returns (cache, tokens_out (K,M,mbg) int32,
-    logit_max (K,M,mbg) float32); the pool is updated in place.
+    row starting at ``positions`` (chunked prefill at ragged depths). An
+    optional ``active`` (K,M,mbg) bool row mask: inactive rows compute but
+    never write their cache (the reference's ``put_cache`` row mask), so
+    idle and decoding rows ride along in another row's call untouched.
+    Paged (``eng.paged``): the batch also carries ``block_tables``
+    (K,M,mbg,width) shard-local ids into the pool. Dense: slot (k, m)
+    reads and writes its own strips ``cache[k, m]`` (the engine runs with
+    one cache group per slot). Returns (cache, tokens_out (K,M,mbg) int32,
+    logit_max (K,M,mbg) float32); the cache is updated in place.
     """
     if mode not in ("decode", "append"):
         raise NotImplementedError(f"serve mode {mode!r} is not ported yet "
                                   f"(decode/append only)")
-    _check_paged_support(cfg, eng)
+    _check_family(cfg)
+    if eng.paged:
+        _check_paged_support(cfg, eng)
+    elif eng.cache_groups != eng.n_microbatches:
+        raise ValueError("dense append/decode index one cache group per "
+                         "slot: run with prefill_chunks=1 (as the serve "
+                         "engine does)")
     S, K = eng.n_stages, eng.n_trials
     plan = plan_stages(cfg, S)
     l_s = plan.layers_per_stage
     tokens, positions = batch["tokens"], batch["positions"]
     active = batch.get("active")
-    tables = global_block_tables(eng, batch["block_tables"])
+    tables = (global_block_tables(eng, batch["block_tables"]) if eng.paged
+              else None)
     mbg, qlen = tokens.shape[-2], tokens.shape[-1]
     dev = tokens.device
     steps = torch.arange(qlen, device=dev)
@@ -445,7 +489,8 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
                 x = acts[s - 1]
             lo = s * l_s
             p_layers = trials[k]["layers"][lo:lo + l_s]
-            c = {"layers": {n: v[k, lo:lo + l_s]
+            cell = (k,) if eng.paged else (k, m)
+            c = {"layers": {n: v[cell][lo:lo + l_s]
                             for n, v in cache["layers"].items()},
                  "shared": None}
             y, _ = lm.stack_apply(
@@ -454,7 +499,7 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
                 cache=c, layer_mask=[lo + i < cfg.n_layers
                                      for i in range(l_s)],
                 kv_offset=positions[k, m],
-                block_tables=tables[k, m],
+                block_tables=None if tables is None else tables[k, m],
                 write_mask=None if active is None else active[k, m])
             nxt[s] = y
             if s == S - 1:  # the slot drains: greedy head
@@ -471,15 +516,43 @@ def make_serve_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
     :func:`pipeline_serve` in ``mode`` (decode | append). PyTorch runs
     eagerly, so there is nothing to compile; the reference's
     ``with_active`` flag is implied by an ``active`` batch entry."""
+    if mode in ("mixed", "verify") and cfg.family in ("ssm", "hybrid"):
+        raise ValueError("mixed-tick/verify serving is attention-family "
+                         "only: ragged padded tokens would advance "
+                         "recurrent SSM state")
     if mode not in ("decode", "append"):
         raise NotImplementedError(f"serve mode {mode!r} is not ported yet "
                                   f"(decode/append only)")
-    _check_paged_support(cfg, eng)
+    _check_family(cfg)
+    if eng.paged:
+        _check_paged_support(cfg, eng)
 
     def step(params, cache, batch):
         return pipeline_serve(cfg, opts, eng, params, cache, batch, mode)
 
     return step
+
+
+def make_slot_reset(cfg: ArchConfig, eng: EngineConfig) -> Callable:
+    """fn(cache, mask) zeroing the dense cache rows of recycled slots, in
+    place. ``mask``: (K, cache_groups, mb_global) bool (numpy or tensor) —
+    True rows are cleared before a queued request is admitted into the
+    freed slot. KV rows beyond kv_len are never attended, but SSM/conv
+    states are recurrent and MUST restart from zero for the next request.
+    (Paged engines never call this: stale pool blocks are masked by
+    kv_len, and freed blocks return to the allocator host-side.)"""
+    if eng.paged:
+        raise ValueError("paged caches need no slot reset (no recurrent "
+                         "state; stale blocks are masked via kv_len)")
+
+    def reset(cache, mask):
+        rows = torch.as_tensor(mask).nonzero().tolist()
+        for buf in cache["layers"].values():
+            for k, g, b in rows:  # leaves (K, G, Lp, mbg, ...)
+                buf[k, g, :, b].zero_()
+        return cache
+
+    return reset
 
 
 # ---------------------------------------------------------------------------

@@ -113,7 +113,7 @@ def kv_token_bytes_per_chip(cfg: ArchConfig, eng: EngineConfig) -> int:
 
 def _cache_bytes_per_chip(cfg: ArchConfig, eng: EngineConfig,
                           seq_len: int) -> int:
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "hybrid":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     if eng.paged:
         # the persistent cache is the block pool, not slots × max_seq strips
@@ -121,6 +121,13 @@ def _cache_bytes_per_chip(cfg: ArchConfig, eng: EngineConfig,
         return (local_blocks * eng.block_size
                 * kv_token_bytes_per_chip(cfg, eng))
     b_local = eng.microbatch * eng.n_microbatches
+    if cfg.family == "ssm":
+        # O(1) per row: the fp32 state and the conv window, whatever seq_len
+        s = cfg.ssm
+        di = s.d_inner(cfg.d_model)
+        per_layer = b_local * di * s.d_state * 4
+        per_layer += b_local * (s.d_conv - 1) * di * eng.cache_dtype.itemsize
+        return per_layer * plan_stages(cfg, eng.n_stages).layers_per_stage
     return b_local * seq_len * kv_token_bytes_per_chip(cfg, eng)
 
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import paged_attention as pa
 
 
@@ -79,3 +80,37 @@ def paged_attention(q, k_pool, v_pool, block_tables, kv_offset, kv_len, *,
           else pa.paged_attention_kernel)
     return fn(q, k_pool, v_pool, block_tables, kv_offset, kv_len,
               causal=causal, window=window, q_lens=q_lens)
+
+
+# ---------------------------------------------------------------------------
+# mamba selective scan: kernel forward + sequential backward (the
+# reference's ``_mamba_core`` custom_vjp, whose backward is jax.vjp of the
+# sequential oracle)
+# ---------------------------------------------------------------------------
+
+
+class _MambaScan(torch.autograd.Function):
+    """Forward: the CUDA kernel on a CUDA tensor, the plain version on a CPU
+    one. Backward: autograd through ``mamba_scan_plain`` (as
+    ``ops._mamba_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, da, dbx, cmat, h0):
+        ctx.save_for_backward(da, dbx, cmat, h0)
+        fn = (ms.mamba_scan_plain if da.device.type == "cpu"
+              else ms.mamba_scan_kernel)
+        return fn(da, dbx, cmat, h0)
+
+    @staticmethod
+    def backward(ctx, ct_y, ct_h):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            outs = ms.mamba_scan_plain(*leaves)
+            return torch.autograd.grad(outs, leaves, (ct_y, ct_h))
+
+
+def mamba_scan(da, dbx, cmat, h0):
+    """Selective scan: da / dbx (b, s, di, n), cmat (b, s, n), h0
+    (b, di, n) -> (y (b, s, di) in da's dtype, h_final (b, di, n) float32);
+    differentiable. See ``kernels/mamba_scan.py``."""
+    return _MambaScan.apply(da, dbx, cmat, h0.float())

@@ -1,18 +1,25 @@
-"""Attention block and paged KV-cache ops in PyTorch.
+"""Attention and Mamba1 blocks and the KV-cache ops in PyTorch.
 
-Port of ``repro/models/blocks.py`` for the dense attention family. A block
-is one layer: pre-norm attention + pre-norm FFN with residuals, called as
+Port of ``repro/models/blocks.py`` for the dense attention family and the
+Mamba1 (``ssm``) family. A block is one layer — pre-norm attention +
+pre-norm FFN with residuals, or pre-norm Mamba1 mixer with a residual —
+called as
 
     y, cache = block_fn(cfg, opts, p, x, pos=..., cache=..., mode=...)
 
-(The reference also returns an MoE auxiliary loss; the dense family's is
+(The reference also returns an MoE auxiliary loss; these families' is
 always zero, so the port drops it until MoE is ported.)
 
 Where the reference threads caches functionally (JAX returns a new pool),
 the port updates cache tensors **in place** (``index_copy_`` on the pool,
-slice assignment on dense strips) and returns the same tensors: the serve
-pool is tens of GB at full width, and a copy per layer per call would
-double it. Callers that need the old contents clone them first.
+slice assignment on dense strips, a masked copy of SSM / conv states) and
+returns the same tensors: the serve pool is tens of GB at full width, and a
+copy per layer per call would double it. Callers that need the old
+contents clone them first. The reference's serve pipeline keeps the old
+cache rows of every row outside a call (``put_cache`` with its row mask);
+here ``write_mask`` (b,) gates the in-place writes themselves, so a row
+that rides along in another row's call leaves its K/V and its recurrent
+state untouched.
 """
 from __future__ import annotations
 
@@ -83,13 +90,17 @@ def paged_kv_update(cache, k, v, block_tables, kv_offset, write_mask=None):
 # ---------------------------------------------------------------------------
 
 
-def _dense_write(cache, k, v, start):
+def _dense_write(cache, k, v, start, write_mask=None):
     """Write (b, s) K/V into dense (b, S_max, ...) strips at per-row start
     offsets, in place (the reference's vmapped dynamic_update_slice, whose
-    start clamps so the chunk stays inside the strip)."""
+    start clamps so the chunk stays inside the strip). Rows whose
+    ``write_mask`` entry is False are left as they were."""
     s, s_cache = k.shape[1], cache["k"].shape[1]
-    for r, o in enumerate(start.tolist()):
-        o = min(max(int(o), 0), s_cache - s)
+    rows = (range(k.shape[0]) if write_mask is None
+            else write_mask.nonzero().flatten().tolist())
+    starts = start.tolist()
+    for r in rows:
+        o = min(max(int(starts[r]), 0), s_cache - s)
         cache["k"][r, o:o + s] = k[r].to(cache["k"].dtype)
         cache["v"][r, o:o + s] = v[r].to(cache["v"].dtype)
 
@@ -101,8 +112,9 @@ def attn_apply(cfg: ArchConfig, opts: ModelOptions, p, x, *, pos,
     """x (b, s, d) -> (b, s, d); dense cache {'k','v'}: (b, S_max, h_kv, hd).
 
     ``block_tables`` switches append/decode to the paged pool layout (cache
-    is then the shared (n_blocks, block_size, h_kv, hd) pool and
-    ``write_mask`` gates which rows write this call). With
+    is then the shared (n_blocks, block_size, h_kv, hd) pool). In append
+    and decode ``write_mask`` (b,) gates which rows write this call, in the
+    pool and in dense strips alike. With
     ``opts.use_paged_kernel`` attention reads the pool straight through the
     tables (``kernels.ops.paged_attention``); otherwise each row's logical
     view is gathered first. Returns (out, cache) — caches are updated in
@@ -154,7 +166,7 @@ def attn_apply(cfg: ArchConfig, opts: ModelOptions, p, x, *, pos,
     elif mode == "append":
         # chunked prefill into dense strips at per-row depths kv_offset
         s_cache = cache["k"].shape[1]
-        _dense_write(cache, k, v, kv_offset)
+        _dense_write(cache, k, v, kv_offset, write_mask)
         kv_len = torch.clamp(kv_offset + s, max=s_cache)
         out = L.attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                           causal=True, window=window, kv_offset=kv_offset,
@@ -162,7 +174,7 @@ def attn_apply(cfg: ArchConfig, opts: ModelOptions, p, x, *, pos,
     elif mode == "decode":
         # ring-buffer insert: slot = kv_offset mod cache_len
         s_cache = cache["k"].shape[1]
-        _dense_write(cache, k, v, kv_offset % s_cache)
+        _dense_write(cache, k, v, kv_offset % s_cache, write_mask)
         kv_len = torch.clamp(kv_offset + 1, max=s_cache)
         kc, vc = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
         if window > 0 and s_cache > window:
@@ -194,11 +206,44 @@ def dense_block(cfg, opts, p, x, *, pos, cache=None, kv_offset=None,
     return x, cache
 
 
+def _masked_copy(dst, src, write_mask):
+    """dst := src in place, on the rows (axis 0) where ``write_mask`` holds
+    (all rows when it is None); no host sync."""
+    src = src.to(dst.dtype)
+    if write_mask is not None:
+        keep = write_mask.reshape((-1,) + (1,) * (dst.ndim - 1))
+        src = torch.where(keep, src, dst)
+    dst.copy_(src)
+
+
+def ssm_block(cfg, opts, p, x, *, pos, cache=None, kv_offset=None,
+              mode="train", window: int = 0, block_tables=None,
+              write_mask=None):
+    """Mamba1 block (falcon-mamba): norm -> mamba -> residual. The cache
+    {'ssm' (b, di, n) fp32, 'conv' (b, d_conv-1, di)} is read as the
+    incoming state and overwritten in place with the new one on the rows
+    ``write_mask`` allows. (``pos`` / ``kv_offset`` / ``window`` /
+    ``block_tables`` are accepted for signature uniformity: the recurrent
+    state is O(1) per row, not positional, and never paged.)"""
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    ssm_s = cache["ssm"] if cache is not None else None
+    conv_s = cache["conv"] if cache is not None else None
+    y, new_ssm, new_conv = L.mamba1_mix(p["mamba"], h, cfg, ssm_s, conv_s,
+                                        opts)
+    if cache is not None:
+        _masked_copy(cache["ssm"], new_ssm, write_mask)
+        _masked_copy(cache["conv"], new_conv, write_mask)
+    return x + y, cache
+
+
+BLOCK_FNS = {"dense": dense_block, "ssm": ssm_block}
+
+
 def block_fn_for(cfg: ArchConfig):
-    if cfg.family != "dense":
+    if cfg.family not in BLOCK_FNS:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
-    return dense_block
+            f"family {cfg.family!r} is not ported yet (dense and ssm only)")
+    return BLOCK_FNS[cfg.family]
 
 
 # ---------------------------------------------------------------------------
@@ -208,6 +253,13 @@ def block_fn_for(cfg: ArchConfig):
 
 def layer_cache_shape(cfg: ArchConfig, batch: int, max_seq: int,
                       cache_dtype=torch.bfloat16) -> dict:
-    """(shape, dtype) for ONE layer's dense cache (no leading layer dim)."""
+    """(shape, dtype) for ONE layer's dense cache (no leading layer dim).
+    The ``ssm`` family keeps its recurrent state in fp32 whatever the cache
+    dtype, and its conv window in the cache dtype."""
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        di = s.d_inner(cfg.d_model)
+        return {"ssm": ((batch, di, s.d_state), torch.float32),
+                "conv": ((batch, s.d_conv - 1, di), cache_dtype)}
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     return {"k": (shape, cache_dtype), "v": (shape, cache_dtype)}

@@ -1,12 +1,13 @@
-"""Core dense layers in PyTorch: RMS/layer norm, rotary embeddings (1d /
-2d-half), GQA attention (flash kernel / chunked online-softmax / direct) and
-the SwiGLU/GELU MLP.
+"""Core layers in PyTorch: RMS/layer norm, rotary embeddings (1d /
+2d-half), GQA attention (flash kernel / chunked online-softmax / direct),
+the SwiGLU/GELU MLP and the Mamba1 selective-scan mixer.
 
-Port of ``repro/models/layers.py`` (attention family only — MoE, Mamba and
-M-RoPE wait for their slices). Functions keep the reference's tensor layouts
-(``(b, s, h, hd)`` activations, ``(d, f)`` weights) so the tests compare like
-with like. Everything is a plain function on tensors; the pipeline engine
-stacks layers along a leading axis exactly as the reference does.
+Port of ``repro/models/layers.py`` (attention family and Mamba1 — MoE,
+Mamba2 and M-RoPE wait for their slices). Functions keep the reference's
+tensor layouts (``(b, s, h, hd)`` activations, ``(d, f)`` weights) so the
+tests compare like with like. Everything is a plain function on tensors;
+the pipeline engine stacks layers along a leading axis exactly as the
+reference does.
 """
 from __future__ import annotations
 
@@ -33,6 +34,9 @@ class ModelOptions:
     attn_kv_chunk: int = 1024
     use_flash_kernel: bool = False  # full-sequence attention through
     # kernels.ops.flash_attention (the CUDA kernel on a card)
+    use_mamba_kernel: bool = False  # Mamba1 prefill / append scans through
+    # kernels.ops.mamba_scan (the CUDA kernel on a card) instead of the
+    # chunked scan
     use_paged_kernel: bool = False  # paged decode/append attends straight
     # from the block pool (kernels/paged_attention.py) instead of gathering
     # each row's full logical K/V view
@@ -262,3 +266,109 @@ def mlp_apply(p, x, act: str):
         return (F.silu(g) * u) @ p["w_down"]
     h = x @ p["w_up"]
     return F.gelu(h, approximate="tanh") @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mamba1 (selective scan)
+# ---------------------------------------------------------------------------
+
+
+def _causal_conv1d(x, w, b, state=None):
+    """Depthwise causal conv. x (bt, s, c), w (c, width), state
+    (bt, width-1, c). Returns (y, new_state) where new_state is the
+    trailing (width-1) inputs."""
+    width = w.shape[-1]
+    if state is None:
+        state = torch.zeros((x.shape[0], width - 1, x.shape[-1]),
+                            dtype=x.dtype, device=x.device)
+    xe = torch.cat([state, x], dim=1)  # promotes as jnp.concatenate
+    # depthwise conv as a sum of shifted slices (width is tiny, typically 4)
+    s = x.shape[1]
+    y = sum(xe[:, i:i + s] * w[:, i] for i in range(width))
+    y = y + b
+    new_state = xe[:, -(width - 1):] if width > 1 else state
+    return y, new_state
+
+
+def _selective_scan_chunk(h, da, dbx, cmat):
+    """One chunk of the sequential scan: h (b, di, n) fp32, da / dbx
+    (b, ck, di, n), cmat (b, ck, n) -> (h_new, y (b, ck, di))."""
+    hs = []
+    for t in range(da.shape[1]):
+        h = da[:, t] * h + dbx[:, t]
+        hs.append(h)
+    return h, torch.einsum("sbin,bsn->bsi", torch.stack(hs), cmat)
+
+
+def mamba1_mix(p, x, cfg: ArchConfig, ssm_state=None, conv_state=None,
+               opts: ModelOptions | None = None):
+    """Mamba1 selective-scan mixer. x (b, s, d) -> (b, s, d).
+
+    Decode (s == 1): one recurrent step against (conv_state, ssm_state).
+    Prefill / append: the CUDA kernel through ``kernels.ops.mamba_scan``
+    (``opts.use_mamba_kernel``; its plain version on a CPU tensor), else the
+    chunked scan over time, padded steps masked to identity decay (each
+    chunk a ``torch.utils.checkpoint`` when autograd records, the
+    reference's ``jax.checkpoint``). ``da``, ``dbx`` and ``C`` are fp32
+    whatever the compute dtype; ``y`` plus the ``D`` skip is cast to x's
+    dtype before the ``silu(z)`` gate. Returns (y, new_ssm_state,
+    new_conv_state); the caller writes the states back.
+    """
+    s_cfg = cfg.ssm
+    b, s, d = x.shape
+    di, n = s_cfg.d_inner(cfg.d_model), s_cfg.d_state
+    r = s_cfg.resolved_dt_rank(cfg.d_model)
+    xin, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    xin, new_conv = _causal_conv1d(xin, p["conv_w"], p["conv_b"], conv_state)
+    xin = F.silu(xin)
+    a = -torch.exp(p["A_log"].float())  # (di, n)
+
+    def ssm_inputs(x_chunk):
+        """x_chunk (b, t, di) -> decay da (b,t,di,n), input dbx (b,t,di,n),
+        C (b,t,n)."""
+        proj = x_chunk @ p["x_proj"]
+        dt_in, bmat, cmat = proj.split([r, n, n], dim=-1)
+        dt = F.softplus(dt_in @ p["dt_proj"] + p["dt_bias"]).float()
+        da = torch.exp(dt[..., None] * a)
+        dbx = (dt * x_chunk.float())[..., None] * bmat.float()[:, :, None, :]
+        return da, dbx, cmat.float()
+
+    if ssm_state is None:
+        ssm_state = torch.zeros((b, di, n), dtype=torch.float32,
+                                device=x.device)
+
+    if s == 1:
+        da, dbx, cmat = ssm_inputs(xin)
+        new_state = da[:, 0] * ssm_state + dbx[:, 0]  # (b, di, n)
+        y = torch.einsum("bin,bn->bi", new_state, cmat[:, 0])[:, None]
+    elif opts is not None and opts.use_mamba_kernel:
+        from repro_torch.kernels import ops as kernel_ops
+        y, new_state = kernel_ops.mamba_scan(*ssm_inputs(xin), ssm_state)
+    else:
+        ck = min(s_cfg.chunk_size, s)
+        s_p = -(-s // ck) * ck
+        xin_p = F.pad(xin, (0, 0, 0, s_p - s))
+        valid = (torch.arange(s_p, device=x.device) < s)[None, :, None, None]
+
+        def chunk_body(h, x_chunk, v_chunk):
+            da, dbx, cmat = ssm_inputs(x_chunk)
+            # padded steps must not decay the carried state
+            da = torch.where(v_chunk, da, torch.ones_like(da))
+            dbx = torch.where(v_chunk, dbx, torch.zeros_like(dbx))
+            return _selective_scan_chunk(h, da, dbx, cmat)
+
+        record = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xin, *p.values()))
+        h, ys = ssm_state.float(), []
+        for c0 in range(0, s_p, ck):
+            args = (h, xin_p[:, c0:c0 + ck], valid[:, c0:c0 + ck])
+            h, y_c = (checkpoint(chunk_body, *args, use_reentrant=False,
+                                 preserve_rng_state=False)
+                      if record else chunk_body(*args))
+            ys.append(y_c)
+        new_state = h
+        y = torch.cat(ys, dim=1)[:, :s]
+
+    y = (y + xin.float() * p["D"]).to(x.dtype)
+    y = y * F.silu(z)
+    return y @ p["out_proj"], new_state, new_conv

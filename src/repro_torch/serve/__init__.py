@@ -1,7 +1,8 @@
 """Continuous-batching serve subsystem of the PyTorch port: per-arch
 request queues routed onto the (trial k, microbatch m, batch-row b) slot
 grid of one co-serving gang. The host-side modules are copies of
-``repro.serve``'s; the engine is the paged, split-admission port."""
+``repro.serve``'s; the engine is the split-admission port over the paged
+pool or dense per-slot strips."""
 from repro_torch.serve.request import (  # noqa: F401
     Completion,
     Request,

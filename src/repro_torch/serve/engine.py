@@ -1,10 +1,22 @@
 """Continuous-batching serve engine over the pipelined serving program.
 
-Port of ``repro/serve/engine.py`` with the paged KV pool and split
-admission — the serving path the reference's benches and exactness tests
-run. The slot grid is (trial k, microbatch m, batch row b); every (k, m, b)
-cell owns one block table into trial k's pool partition for its data shard,
-and the batcher routes each request's arch id to its own trial rows.
+Port of ``repro/serve/engine.py`` with split admission over either cache
+layout. The slot grid is (trial k, microbatch m, batch row b), and the
+batcher routes each request's arch id to its own trial rows. Dense strips
+(the default, and the only layout for the ssm family): every (k, m, b)
+cell owns one cache row of trial k — K/V strips of ``max_seq`` tokens, or
+the recurrent SSM and conv states. Paged (``eng.paged``): every cell owns
+one block table into trial k's pool partition for its data shard.
+
+Cell lifecycle (dense):
+
+  FREE ──admit──► PREFILL ──last chunk──► DECODE ──budget hit──► FREE
+   ▲   (the cell's cache row is zeroed         (one token per engine round │
+   │    before the round's calls — KV rows     via the masked decode step)│
+   │    beyond kv_len are never attended,                                 │
+   │    but SSM states are recurrent and                                  │
+   │    must restart from zero)                                           │
+   └──────────────────────────────────────────────────────────────────────┘
 
 Cell lifecycle (paged):
 
@@ -22,9 +34,13 @@ prefill; the final chunk's head output is the first generated token) → one
 power-of-two bucket covering the longest live table under the paged kernel,
 so per-call attention work follows live length, not ``max_seq``.
 
-Not ported yet (the constructor raises ``NotImplementedError``): dense
-strips, the radix prefix cache, overcommit retraction, fused mixed-tick
-admission, gang speculation, and ``static_serve``.
+Not ported yet (the constructor raises ``NotImplementedError``):
+sliding-window serving, the radix prefix cache, overcommit retraction,
+fused mixed-tick admission, gang speculation, and ``static_serve``. The
+reference's own rejections come first (``ValueError``): a window, fused
+admission or speculation for a recurrent family, the prefix cache,
+overcommit or the paged kernel without a paged pool, and a paged pool for
+the ssm family.
 """
 from __future__ import annotations
 
@@ -222,8 +238,9 @@ class ServeEngine:
     ``eng.n_microbatches`` × global microbatch rows form the slot grid,
     ``eng.max_seq`` bounds each request, ``eng.prefill_chunks`` sets the
     admission chunk count and ``policy`` the per-arch admission order
-    (fcfs / sjf / deadline). The pools live on ``device`` (``cuda`` unless
-    the caller asks for ``"cpu"``), where ``params`` must live too.
+    (fcfs / sjf / deadline); ``eng.paged`` picks the cache layout. The
+    caches live on ``device`` (``cuda`` unless the caller asks for
+    ``"cpu"``), where ``params`` must live too.
     """
 
     def __init__(self, cfg: ArchConfig, eng: pl.EngineConfig, params,
@@ -233,7 +250,34 @@ class ServeEngine:
                  spec_gamma: int = 0, tracer=None, device=None):
         if cfg.rope == "mrope" or cfg.frontend is not None:
             raise ValueError("continuous batching supports text-only archs")
-        for flag, what in ((not eng.paged, "dense (non-paged) serving"),
+        recurrent = cfg.family in ("ssm", "hybrid") or cfg.hybrid is not None
+        if eng.window and recurrent:
+            raise ValueError(
+                "sliding-window continuous serving supports attention-only "
+                "archs (SSM state is not positional; the hybrid shared cache "
+                "is a window-sized ring the append step cannot address)")
+        if fused and recurrent:
+            raise ValueError(
+                "fused mixed-tick admission is attention-family only "
+                "(ragged waves pad rows to the wave max and a recurrent "
+                "state would advance through the padded positions)")
+        if spec_gamma > 0 and recurrent:
+            raise ValueError(
+                "gang speculation is attention-family only (rollback "
+                "truncates KV positionally; recurrent state cannot be "
+                "rewound to an earlier position)")
+        opts = opts or ModelOptions()
+        if opts.use_paged_kernel and not eng.paged:
+            raise ValueError("use_paged_kernel attends through block tables; "
+                             "enable eng.paged")
+        if prefix_cache and not eng.paged:
+            raise ValueError("the radix prefix cache shares paged KV blocks; "
+                             "enable eng.paged to use prefix_cache")
+        if overcommit > 1.0 and not eng.paged:
+            raise ValueError("overcommit > 1.0 preempts paged block "
+                             "commitments; dense strips cannot be retracted "
+                             "— enable eng.paged")
+        for flag, what in ((eng.window > 0, "sliding-window serving"),
                            (prefix_cache, "the radix prefix cache"),
                            (overcommit > 1.0, "overcommit retraction"),
                            (fused, "fused mixed-tick admission"),
@@ -241,7 +285,7 @@ class ServeEngine:
             if flag:
                 raise NotImplementedError(f"{what} is not ported yet")
         self.cfg = cfg
-        self.opts = opts or ModelOptions()
+        self.opts = opts
         self.device = resolve_device(device)
         # NULL_TRACER when off: emission sites guard with `if tr.enabled:`
         self.trace = resolve(tracer)
@@ -255,19 +299,26 @@ class ServeEngine:
                                               "decode")
         self.append_step = pl.make_serve_step(cfg, self.opts, self.eng,
                                               "append")
-        # one pool partition per (trial, data shard): rows allocate only
-        # from the partition their (k, shard) owns (tables carry local ids)
-        n_parts = self.eng.data_size
-        self.allocator = BlockAllocator(
-            self.eng.n_blocks * self.n_arches, self.eng.block_size,
-            n_partitions=self.n_arches * n_parts)
-        self.max_blocks = blocks_for(self.eng.max_seq, self.eng.block_size)
-        self.transfer = TransferEngine(
-            self.n_arches, n_parts,
-            kernels=pl.make_transfer_kernels(cfg, self.eng))
-        self.transfer.bind(lambda: self.cache, self._set_cache)
-        self.store = BlockStore(self.allocator, transfer=self.transfer)
-        self.store.trace = self.trace
+        self.paged = bool(self.eng.paged)
+        self.allocator = self.store = self.transfer = self.reset_fn = None
+        if self.paged:
+            # one pool partition per (trial, data shard): rows allocate only
+            # from the partition their (k, shard) owns (tables carry local
+            # ids); no slot reset — stale blocks are masked via kv_len
+            n_parts = self.eng.data_size
+            self.allocator = BlockAllocator(
+                self.eng.n_blocks * self.n_arches, self.eng.block_size,
+                n_partitions=self.n_arches * n_parts)
+            self.max_blocks = blocks_for(self.eng.max_seq,
+                                         self.eng.block_size)
+            self.transfer = TransferEngine(
+                self.n_arches, n_parts,
+                kernels=pl.make_transfer_kernels(cfg, self.eng))
+            self.transfer.bind(lambda: self.cache, self._set_cache)
+            self.store = BlockStore(self.allocator, transfer=self.transfer)
+            self.store.trace = self.trace
+        else:
+            self.reset_fn = pl.make_slot_reset(cfg, self.eng)
         self.cache = pl.serve_cache_struct(cfg, self.eng, device=self.device)
         self.batcher = Batcher(self.eng.n_microbatches, self.mb_global,
                                self.n_chunks, self.eng.max_seq,
@@ -321,6 +372,8 @@ class ServeEngine:
         calls_before = self.stats.calls
         admitted = self.batcher.admit(self.tick)
         if admitted:
+            if not self.paged:
+                self._reset_rows(admitted)
             self.stats.prompt_tokens += sum(
                 s.request.prompt_len for s in admitted)
             if tr.enabled:
@@ -330,13 +383,15 @@ class ServeEngine:
         occupied = self.batcher.occupied()
         self.stats.peak_live = max(self.stats.peak_live, occupied)
         self.stats.occupancy_samples.append(occupied / self.batcher.n_cells)
-        self.stats.block_usage_samples.append(self.allocator.used_blocks())
+        if self.allocator is not None:
+            self.stats.block_usage_samples.append(
+                self.allocator.used_blocks())
         for qlen, slots in sorted(self.batcher.prefill_groups().items()):
             self._prefill_call(qlen, slots)
         dec = self.batcher.decode_slots()
         if dec:
             self._decode_call(dec)
-        if self.transfer.pending():
+        if self.transfer is not None and self.transfer.pending():
             self.transfer.flush()
         # a pool can still wedge; flag the deadlock instead of spinning
         if occupied and self.stats.calls == calls_before and not admitted:
@@ -347,16 +402,20 @@ class ServeEngine:
                     "row waiting for a block (grow n_blocks)")
         else:
             self._stalled_ticks = 0
-        self.stats.swap_out_blocks = self.transfer.swap_out_blocks
-        self.stats.swap_in_blocks = self.transfer.swap_in_blocks
+        if self.transfer is not None:
+            self.stats.swap_out_blocks = self.transfer.swap_out_blocks
+            self.stats.swap_in_blocks = self.transfer.swap_in_blocks
         if tr.enabled:
-            tr.round(modes=self._round_modes, occupied=occupied,
-                     occupancy=round(occupied / self.batcher.n_cells, 4),
-                     queues=[len(q) for q in self.batcher.queues],
-                     pool_blocks=self.allocator.used_blocks(),
-                     host_depth=[self.store.host_used(p)
-                                 for p in range(self.store.n_partitions)],
-                     inflight=self.transfer.take_round_peak())
+            rec = {"modes": self._round_modes, "occupied": occupied,
+                   "occupancy": round(occupied / self.batcher.n_cells, 4),
+                   "queues": [len(q) for q in self.batcher.queues]}
+            if self.allocator is not None:
+                rec["pool_blocks"] = self.allocator.used_blocks()
+                rec["host_depth"] = [
+                    self.store.host_used(p)
+                    for p in range(self.store.n_partitions)]
+                rec["inflight"] = self.transfer.take_round_peak()
+            tr.round(**rec)
         return True
 
     # -- internals -----------------------------------------------------------
@@ -366,6 +425,15 @@ class ServeEngine:
         return (np.zeros((k, m, b, qlen), np.int32),
                 np.zeros((k, m, b), np.int32),
                 np.zeros((k, m, b), bool))
+
+    def _reset_rows(self, slots) -> None:
+        """Zero the dense cache rows of the admitted cells, before this
+        round's calls."""
+        mask = np.zeros((self.n_arches, self.eng.n_microbatches,
+                         self.mb_global), bool)
+        for s in slots:
+            mask[s.k, s.m, s.b] = True
+        self.cache = self.reset_fn(self.cache, mask)
 
     def _block_tables(self, slots):
         """(K, M, mb_global, width) int32 local ids; rows not in the call
@@ -389,7 +457,9 @@ class ServeEngine:
     def _prepare(self, slots, extra) -> list:
         """Grow each slot's block table to cover its next ``extra``
         positions; rows the pool cannot back are stalled (kept out of this
-        round's call, retried next round)."""
+        round's call, retried next round). Dense cells are always ready."""
+        if not self.paged:
+            return list(slots)
         ready = []
         for s in slots:
             if s.request is None:
@@ -415,18 +485,22 @@ class ServeEngine:
 
     def _batch(self, tokens, positions, active, slots) -> dict:
         dev = self.device
-        return {"tokens": torch.from_numpy(tokens).to(dev),
-                "positions": torch.from_numpy(positions).to(dev),
-                "active": torch.from_numpy(active).to(dev),
-                "block_tables": torch.from_numpy(
-                    self._block_tables(slots)).to(dev)}
+        batch = {"tokens": torch.from_numpy(tokens).to(dev),
+                 "positions": torch.from_numpy(positions).to(dev),
+                 "active": torch.from_numpy(active).to(dev)}
+        if self.paged:
+            batch["block_tables"] = torch.from_numpy(
+                self._block_tables(slots)).to(dev)
+        return batch
 
     def _prefill_call(self, qlen: int, slots) -> None:
         slots = self._prepare(slots, qlen)
-        self.transfer.flush()
+        if self.transfer is not None:
+            self.transfer.flush()
         if not slots:
             return
-        self._assert_clean(slots, qlen)
+        if self.paged:
+            self._assert_clean(slots, qlen)
         tokens, positions, active = self._grid(qlen)
         for s in slots:
             tokens[s.k, s.m, s.b] = s.chunks[0]
@@ -460,12 +534,14 @@ class ServeEngine:
         """One decode-mode pipeline call for ``slots``; returns the number of
         rows that actually ran (pool stalls drop rows)."""
         slots = self._prepare(slots, 1)
-        self.transfer.flush()
+        if self.transfer is not None:
+            self.transfer.flush()
         if not slots:
             # a fully pool-stalled decode round is zero decode work
             self.stats.decode_busy_samples.append(0.0)
             return 0
-        self._assert_clean(slots, 1)
+        if self.paged:
+            self._assert_clean(slots, 1)
         tokens, positions, active = self._grid(1)
         for s in slots:
             tokens[s.k, s.m, s.b, 0] = s.generated[-1]

@@ -1,5 +1,7 @@
 """PyTorch port — configs: the port's ArchConfig agrees with the reference
-field by field, in its reduced() smoke form, and in param_count()."""
+field by field, in its reduced() smoke form, and in param_count(), for the
+registered archs (chatglm3-6b, falcon-mamba-7b) and every reference
+arch's config logic."""
 import dataclasses
 
 import pytest
@@ -21,7 +23,7 @@ def _port_copy(ref_cfg):
 
 
 def test_registry_holds_the_ported_archs():
-    assert tcfg.list_archs() == ["chatglm3-6b"]
+    assert tcfg.list_archs() == ["chatglm3-6b", "falcon-mamba-7b"]
     with pytest.raises(KeyError, match="unknown arch"):
         tcfg.get_config("yi-34b")
 
@@ -36,6 +38,22 @@ def test_chatglm3_matches_reference(reduced):
     assert port.param_count() == ref.param_count()
     assert port.layer_param_count() == ref.layer_param_count()
     assert port.active_param_count() == ref.active_param_count()
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_falcon_mamba_matches_reference(reduced):
+    ref = jcfg.get_config("falcon-mamba-7b")
+    port = tcfg.get_config("falcon-mamba-7b")
+    if reduced:
+        ref, port = ref.reduced(), port.reduced()
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.param_count() == ref.param_count()
+    assert port.layer_param_count() == ref.layer_param_count()
+    if not reduced:  # 64 layers, d_model 4096, d_inner 8192, d_state 16
+        assert port.param_count() == 7_272_665_088
+        assert (port.n_layers, port.ssm.d_inner(port.d_model),
+                port.ssm.d_state, port.ssm.resolved_dt_rank(port.d_model)) \
+            == (64, 8192, 16, 256)
 
 
 def test_chatglm3_full_width_numbers():

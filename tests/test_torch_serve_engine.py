@@ -124,9 +124,10 @@ def test_engine_rejects_unported_features_and_missing_cuda():
                dict(fused=True), dict(spec_gamma=2)):
         with pytest.raises(NotImplementedError):
             TEngine(cfg, eng, params, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        TEngine(cfg, dataclasses.replace(eng, paged=False), params,
-                device="cpu")
+    # dense strips are ported: the engine resets rows instead of paging
+    dense = TEngine(cfg, dataclasses.replace(eng, paged=False), params,
+                    device="cpu")
+    assert dense.allocator is None and dense.reset_fn is not None
     if not torch.cuda.is_available():
         # entry points default to the card and never fall back silently
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -141,3 +142,11 @@ def test_launcher_smoke_on_cpu(capsys):
                    "--device", "cpu"])
     out = capsys.readouterr().out
     assert "4 requests" in out and "generated" in out
+    # the ssm family serves through dense strips, the default
+    launcher.main(["--arch", "falcon-mamba-7b", "--smoke", "--n-model", "2",
+                   "--slots", "2", "--microbatch", "1", "--n-requests", "4",
+                   "--rate", "2.0", "--prompt-len", "8", "--gen-len", "4",
+                   "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "continuous/dense: 4 requests" in out
+    assert "0 selective-scan kernel launches" in out
