@@ -2,39 +2,52 @@
 
 Run from the root of a checkout on a machine with a CUDA card (H100):
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--phases 2,3,5]
 
 It builds the hand-written CUDA kernels from the checkout's sources (one
 nvcc per source, all started together) and runs ten phases, each a hard
 assert; it exits 0 only if every phase passed, and exits non-zero without
-a result when no CUDA device is visible.
+a result when no CUDA device is visible. ``--phases`` runs a subset (the
+build always runs) and then prints neither the kernels line nor the last
+line.
 
 1. Environment: the card's name and power limit (nvidia-smi), torch/CUDA
    versions, TF32 off for matmuls and cuDNN, the kernels' build time.
 2. The paged-attention kernel (K2) against its plain PyTorch version on
    the card at the serving path's shapes (32 query heads on 2 KV heads,
-   head_dim 128, block 16): decode over ragged kv_len 1..2048, a 64-wide
-   append chunk at ragged offsets, a windowed case, ragged q_lens with a
-   zero row, tables with -1 tails; each in fp32 (tol 2e-5) and bf16 (tol
-   3e-2). Times are CUDA-event medians of 30 launches after warm-up with
-   L2 flushed; the bound is max(bytes / 3.35 TB/s, operations / peak rate
-   of the input type).
+   head_dim 128): decode over ragged kv_len 1..2048, a 64-wide append
+   chunk at ragged offsets, a windowed case, ragged q_lens with a zero row,
+   tables with -1 tails; phase 5's own shapes (decode of 2 rows at 141 and
+   1056 tokens, n_tbl 66; a 486-token append chunk); the split-KV edges
+   (kv_len 0 and 1, a split only partly live, a window starting mid-split,
+   q_lens 0, block sizes 4, 8 and 32). Each in fp32 (tol 2e-5) and bf16
+   (tol 3e-2), with the variant that ran (split-KV or the tensor-core
+   append tile) and its split count. Times are CUDA-event medians of 30
+   launches after warm-up with L2 flushed (a 512 MiB memset, which also
+   keeps the card busy while the host enqueues the call); the bound is
+   max(bytes / 3.35 TB/s, operations / peak rate of the input type).
 3. The flash-attention kernel (K1) against its plain version at the
    training path's shape (b 1, seq 2048, 32 query heads on 2 KV heads,
    head_dim 128, causal) and the reference sweep's edge cases (ragged sq
-   33 with hq = hkv, window 24, kv_offset 32 with sq 16 / sk 48), fp32
-   (tol 2e-5) and bf16 (tol 2e-2); the autograd op's q/k/v gradients
-   against autograd of the plain version; times as phase 2, beside
-   ``F.scaled_dot_product_attention`` (timed as a yardstick only).
+   33 with hq = hkv, window 24, kv_offset 32 with sq 16 / sk 48) plus sq
+   100 (not a multiple of the bf16 tile's 64 rows) and a head_dim 64 case
+   with kv_offset 64, fp32 (tol 2e-5) and bf16 (tol 2e-2); the autograd
+   op's q/k/v gradients against autograd of the plain version; times as
+   phase 2, beside ``F.scaled_dot_product_attention`` (timed as a
+   yardstick only).
 4. Serving exactness: chatglm3-6b at full width, depth cut to 2 layers,
    fp32 weights and pool, 2 stages, 2 data shards: every request's greedy
    tokens from the paged ServeEngine (kernel path) equal the oracle.
 5. The serving path at full size: chatglm3-6b, 28 layers, bf16 weights
    and pool, random weights from a seed; paged kernel, split admission,
    2 stages, 2 slots x microbatch 2; 8 requests with 128-1024 prompt
-   tokens and 32 new tokens each. Every request completes with its budget
-   and K2's launch count equals calls x slots x layers. One more decode
-   call is profiled for its host op count and the card's busy time.
+   tokens and 32 new tokens each. Every request completes with its budget,
+   K2's launch count equals calls x slots x layers, and every decode
+   launch took split-KV and every append launch the tensor-core tile. A
+   profiled second run of the same trace gives K2's device time in decode
+   and in append calls (launches, ms per launch, share of the wall); one
+   more decode call is profiled for its host op count and the card's busy
+   time by kernel class.
 6. Training exactness: full-width chatglm3-6b cut to 2 layers, fp32, K = 2
    trials, 2 stages, 2 microbatches, seq 512, 2 steps of the pipelined
    train step (flash kernel) against K independent unpipelined runs
@@ -122,38 +135,68 @@ def cuda_ms(fn, flush, iters: int = 30, warmup: int = 5) -> float:
     return float(np.median(times))
 
 
+def reset_counts(mod) -> None:
+    """Set a kernel module's launch counts to 0 (the total, and the
+    per-variant counts where the module keeps them)."""
+    mod.launches = 0
+    for name in getattr(mod, "variant_launches", {}):
+        mod.variant_launches[name] = 0
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernel vs plain version
 # ---------------------------------------------------------------------------
 
-# name, sq, per-row kv_offset, q_lens (None = all sq), window
+# name, sq, per-row kv_offset, q_lens (None = all sq), window, block size,
+# n_tbl, timed. The first four are the original sweep (8 rows ragged to 2048
+# tokens, n_tbl 128: the power of two covering 2048 / 16); "p5_*" are phase
+# 5's own shapes (b 2 rows of one slot, live lengths 128-1056, n_tbl up to
+# the 66 entries of a 1056-token row; the append chunk is one phase 5
+# launches: 486 tokens, a second chunk at offset 487 beside a first at 0);
+# "edge_*" are the split-KV edges: kv_len 0 and 1, a split only partly
+# live, a window starting mid-split, q_lens 0, block sizes 4, 8 and 32
+# (correctness only).
 CASES = [
-    ("decode", 1, [0, 16, 129, 510, 1023, 1499, 1999, 2047], None, 0),
-    ("append64", 64, [0, 100, 700, 1900], None, 0),
-    ("decode_window256", 1, [299, 899, 2047, 4], None, 256),
-    ("append64_ragged_qlens", 64, [100, 200, 300, 400], [64, 1, 0, 33], 0),
+    ("decode", 1, [0, 16, 129, 510, 1023, 1499, 1999, 2047], None, 0, BS,
+     128, True),
+    ("append64", 64, [0, 100, 700, 1900], None, 0, BS, 128, True),
+    ("decode_window256", 1, [299, 899, 2047, 4], None, 256, BS, 128, True),
+    ("append64_ragged_qlens", 64, [100, 200, 300, 400], [64, 1, 0, 33], 0,
+     BS, 128, True),
+    ("p5_decode", 1, [140, 1055], None, 0, BS, 66, True),
+    ("p5_append486", 486, [487, 0], None, 0, BS, 64, True),
+    ("edge_kv_len_0_1", 1, [0, 0, 37], [0, 1, 1], 0, BS, 8, False),
+    ("edge_partial_split", 1, [70, 200, 63], None, 0, BS, 16, False),
+    ("edge_window_mid_split", 1, [150, 250], None, 100, BS, 16, False),
+    ("edge_q_lens_0", 8, [40, 0, 90], [0, 8, 3], 0, BS, 16, False),
+    ("edge_bs4_decode", 1, [0, 5, 33, 100], None, 0, 4, 32, False),
+    ("edge_bs4_append", 6, [3, 40, 97], [6, 2, 6], 24, 4, 32, False),
+    ("edge_bs8_decode", 1, [7, 64, 130], None, 0, 8, 32, False),
+    ("edge_bs8_append", 5, [0, 61], None, 0, 8, 16, False),
+    ("edge_bs32_decode", 1, [31, 32, 500], None, 40, 32, 16, False),
+    ("edge_bs32_append", 17, [15, 300], [17, 9], 0, 32, 16, False),
 ]
-N_BLOCKS, N_TBL = 1024, 128  # n_tbl: the power of two covering 2048 / 16
+N_BLOCKS = 1024
 
 
-def make_case(dev, dt, sq, offsets, q_lens, seed):
+def make_case(dev, dt, sq, offsets, q_lens, seed, bs=BS, n_tbl=128):
     """Random pool and ragged tables: row r's live blocks are a random
     disjoint subset of the pool covering offsets[r] + sq positions; the rest
     of its table is -1."""
     rng = np.random.default_rng(seed)
     b = len(offsets)
     q_lens = [sq] * b if q_lens is None else q_lens
-    tables = np.full((b, N_TBL), -1, np.int32)
+    tables = np.full((b, n_tbl), -1, np.int32)
     free = list(rng.permutation(N_BLOCKS))
     for r, off in enumerate(offsets):
-        for j in range(-(-(off + sq) // BS)):
+        for j in range(-(-(off + sq) // bs)):
             tables[r, j] = free.pop()
     mk = lambda *shape: torch.from_numpy(
         rng.standard_normal(shape, dtype=np.float32)).to(dev, dt)
     off = torch.tensor(offsets, dtype=torch.int32, device=dev)
     ql = torch.tensor(q_lens, dtype=torch.int32, device=dev)
-    return dict(q=mk(b, sq, HQ, HD), k_pool=mk(N_BLOCKS, BS, HKV, HD),
-                v_pool=mk(N_BLOCKS, BS, HKV, HD),
+    return dict(q=mk(b, sq, HQ, HD), k_pool=mk(N_BLOCKS, bs, HKV, HD),
+                v_pool=mk(N_BLOCKS, bs, HKV, HD),
                 block_tables=torch.from_numpy(tables).to(dev),
                 kv_offset=off, kv_len=off + ql, q_lens=ql)
 
@@ -173,37 +216,55 @@ def case_work(offsets, q_lens, sq, window):
 
 
 def phase2(pa, dev, flush, card):
-    results = []
+    results, failed = [], []
     for dt in (torch.float32, torch.bfloat16):
-        for i, (name, sq, offsets, q_lens, window) in enumerate(CASES):
-            a = make_case(dev, dt, sq, offsets, q_lens, seed=i)
+        for i, (name, sq, offsets, q_lens, window, bs, n_tbl,
+                timed) in enumerate(CASES):
+            a = make_case(dev, dt, sq, offsets, q_lens, seed=i, bs=bs,
+                          n_tbl=n_tbl)
             kw = dict(causal=True, window=window, q_lens=a["q_lens"])
             args = [a[n] for n in ("q", "k_pool", "v_pool", "block_tables",
                                    "kv_offset", "kv_len")]
+            # (the first version of K2, timed for comparison, keeps
+            # neither variant counts nor a split plan)
+            counts = getattr(pa, "variant_launches", {})
+            before = dict(counts)
             got = pa.paged_attention_kernel(*args, **kw)
             torch.cuda.synchronize()
+            variant = next((v for v, n in counts.items() if n > before[v]),
+                           None)
             want = pa.paged_attention_plain(*args, **kw)
             err = float((got.float() - want.float()).abs().max())
-            assert torch.isfinite(got).all(), name
-            assert err < TOL[dt], f"{name}/{dt}: max |kernel - plain| {err}"
-            ms = cuda_ms(lambda: pa.paged_attention_kernel(*args, **kw),
-                         flush)
-            plain_ms = cuda_ms(lambda: pa.paged_attention_plain(*args, **kw),
-                               flush)
-            es = a["q"].element_size()
-            pairs, live = case_work(offsets, q_lens, sq, window)
-            nbytes = (live * HKV * HD * 2 * es + 2 * a["q"].numel() * es
-                      + 4 * (a["block_tables"].numel() + 3 * len(offsets)))
-            ops = pairs * HQ * HD * 4  # QK^T and PV, 2 ops per MAC
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dt]
             rec = dict(card=card, case=name, dtype=str(dt).split(".")[-1],
-                       b=len(offsets), sq=sq, window=window,
-                       max_abs_err=err, tol=TOL[dt], ms=ms,
-                       plain_ms=plain_ms, bound_ms=1e3 * max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       live_kv_tokens=live, bytes=nbytes, ops=ops)
+                       variant=variant, b=len(offsets), sq=sq, window=window,
+                       block_size=bs, n_tbl=n_tbl,
+                       splits=pa.plan_splits(n_tbl, bs, sq, HQ // HKV,
+                                             variant)[1]
+                       if variant else None,
+                       max_abs_err=err, tol=TOL[dt])
+            if not (bool(torch.isfinite(got).all()) and err < TOL[dt]):
+                failed.append(f"{name}/{rec['dtype']} ({variant}): max "
+                              f"|kernel - plain| {err}")
+            if timed:
+                ms = cuda_ms(lambda: pa.paged_attention_kernel(*args, **kw),
+                             flush)
+                plain_ms = cuda_ms(
+                    lambda: pa.paged_attention_plain(*args, **kw), flush)
+                es = a["q"].element_size()
+                pairs, live = case_work(offsets, q_lens, sq, window)
+                nbytes = (live * HKV * HD * 2 * es + 2 * a["q"].numel() * es
+                          + 4 * (a["block_tables"].numel()
+                                 + 3 * len(offsets)))
+                ops = pairs * HQ * HD * 4  # QK^T and PV, 2 ops per MAC
+                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dt]
+                rec.update(ms=ms, plain_ms=plain_ms,
+                           bound_ms=1e3 * max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops
+                           else "operations",
+                           live_kv_tokens=live, bytes=nbytes, ops=ops)
             results.append(rec)
             say("phase 2:", json.dumps(rec))
+    assert not failed, "phase 2: " + "; ".join(failed)
     return results
 
 
@@ -217,6 +278,8 @@ FLASH_CASES = [
     ("ragged_sq33_mha", 2, 33, 33, 4, 4, 32, True, 0, 0),
     ("window24", 1, 128, 128, 8, 2, 16, True, 24, 0),
     ("offset32", 1, 16, 48, 4, 1, 16, True, 0, 32),
+    ("ragged_sq100", 1, 100, 100, HQ, HKV, HD, True, 0, 0),
+    ("offset64_hd64", 2, 72, 136, 8, 2, 64, True, 0, 64),
 ]
 
 
@@ -233,7 +296,7 @@ def flash_pairs(sq, sk, causal, window, off):
 
 def phase3(fa, ops, dev, flush, card):
     import torch.nn.functional as F
-    results = []
+    results, failed = [], []
     gen = torch.Generator(device=dev).manual_seed(7)
     for dt in (torch.float32, torch.bfloat16):
         for name, b, sq, sk, hq, hkv, hd, causal, window, off in FLASH_CASES:
@@ -245,9 +308,9 @@ def phase3(fa, ops, dev, flush, card):
             torch.cuda.synchronize()
             want = fa.flash_attention_plain(q, k, v, **kw)
             err = float((got.float() - want.float()).abs().max())
-            assert torch.isfinite(got).all() and got.dtype == dt, name
-            assert err < FLASH_TOL[dt], f"{name}/{dt}: max |kernel - plain| " \
-                f"{err}"
+            if not (bool(torch.isfinite(got).all()) and got.dtype == dt
+                    and err < FLASH_TOL[dt]):
+                failed.append(f"{name}/{dt}: max |kernel - plain| {err}")
             rec = dict(card=card, case=name, dtype=str(dt).split(".")[-1],
                        b=b, sq=sq, sk=sk, hq=hq, hkv=hkv, hd=hd,
                        window=window, kv_offset=off, max_abs_err=err,
@@ -286,13 +349,15 @@ def phase3(fa, ops, dev, flush, card):
                     grads.append([x.grad for x in leaves])
                 gerr = max(float((a - b_).abs().max()) / max(
                     1.0, float(b_.abs().max())) for a, b_ in zip(*grads))
-                assert all(torch.isfinite(g).all() for g in grads[0]), name
                 # fp32 sums over up to 2048 keys in other orders: 2e-5
                 # relative to the gradient's largest entry
-                assert gerr < 2e-5, f"{name}: gradient error {gerr}"
+                if not (all(bool(torch.isfinite(g).all()) for g in grads[0])
+                        and gerr < 2e-5):
+                    failed.append(f"{name}: gradient error {gerr}")
                 rec["grad_rel_err"] = gerr
             results.append(rec)
             say("phase 3:", json.dumps(rec))
+    assert not failed, "phase 3: " + "; ".join(failed)
     return results
 
 
@@ -342,12 +407,13 @@ def phase4(dev):
     return rec
 
 
-def profile_decode_call(engine, req):
+def profile_decode_call(engine, req, by_class=None):
     """(host ops, device busy ms) of one decode call, from a profile of the
     host and the card. Host ops: top-level aten calls (the count depends
     only on the model's structure, not on timing). Device busy: the summed
     durations of the call's kernels and copies on the card (None if the
-    profiler recorded no device activity)."""
+    profiler recorded no device activity). ``by_class``, a dict, receives
+    the busy ms by ``kernel_class``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -362,9 +428,12 @@ def profile_decode_call(engine, req):
         host = sum(1 for e in events if e.name.startswith("aten::")
                    and (e.cpu_parent is None
                         or not e.cpu_parent.name.startswith("aten::")))
-        dev = [e.time_range.elapsed_us() for e in events
-               if e.device_type == DeviceType.CUDA]
-        counts.append((host, sum(dev) / 1e3 if dev else None))
+        dev = [e for e in events if e.device_type == DeviceType.CUDA]
+        for e in dev if by_class is not None else ():
+            c = kernel_class(e.name)
+            by_class[c] = by_class.get(c, 0.0) + e.time_range.elapsed_us() / 1e3
+        busy = sum(e.time_range.elapsed_us() for e in dev)
+        counts.append((host, busy / 1e3 if dev else None))
         return out
 
     engine.decode_step = counted
@@ -374,6 +443,78 @@ def profile_decode_call(engine, req):
     engine.decode_step = step
     assert counts, "no decode call was profiled"
     return counts[0]
+
+
+# the kernels of K1 and K2, as the first version and the redesign name them
+K1_KERNELS = ("flash_attention_kernel", "flash_attention_mma_kernel",
+              "flash_attention_fp32_kernel")
+K2_KERNELS = ("paged_attention_kernel", "split_kv_kernel", "combine_kernel",
+              "append_mma_kernel")
+
+
+def profile_k2_by_mode(pa, make_engine, reqs):
+    """Run ``reqs`` through a fresh engine under the profiler; returns (the
+    completions, the profiled wall s, {mode: launches, kernel_s,
+    ms_per_launch}). The wrapper records the mode (decode or append call)
+    of each of its launches in order; one stream runs kernels in launch
+    order, so the n-th K2 main kernel on the card is the n-th launch's,
+    and a combine kernel belongs to the main kernel before it. (Matching
+    by order, not by the host's and the card's clocks; the last n main
+    kernels are taken, so nothing recorded from before the run counts.)"""
+    from bisect import bisect_right
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    engine = make_engine()
+    real, mode, modes = pa.paged_attention_kernel, ["none"], []
+
+    def recorded(*args, **kw):
+        modes.append(mode[0])
+        return real(*args, **kw)
+
+    def in_mode(name, step):
+        def run(*a):
+            mode[0] = name
+            try:
+                return step(*a)
+            finally:
+                mode[0] = "none"
+        return run
+
+    engine.decode_step = in_mode("decode", engine.decode_step)
+    engine.append_step = in_mode("append", engine.append_step)
+    pa.paged_attention_kernel = recorded
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            comps = engine.run([r.clone() for r in reqs])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+    finally:
+        pa.paged_attention_kernel = real
+    assert "none" not in modes, "a K2 launch outside decode and append"
+    k2 = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+          and any(k in e.name for k in K2_KERNELS)]
+    main = sorted((e for e in k2 if "combine_kernel" not in e.name),
+                  key=lambda e: e.time_range.start)
+    assert len(main) >= len(modes), (len(main), len(modes))
+    main = main[len(main) - len(modes):]
+    starts = [e.time_range.start for e in main]
+    dev_ms = {"decode": 0.0, "append": 0.0}
+    for e, m in zip(main, modes):
+        dev_ms[m] += e.time_range.elapsed_us() / 1e3
+    for e in k2:
+        i = bisect_right(starts, e.time_range.start) - 1
+        if "combine_kernel" in e.name and i >= 0:
+            dev_ms[modes[i]] += e.time_range.elapsed_us() / 1e3
+    calls = {m: modes.count(m) for m in ("decode", "append")}
+    return comps, wall, {
+        name: dict(launches=calls[name], kernel_s=dev_ms[name] / 1e3,
+                   ms_per_launch=(dev_ms[name] / calls[name]
+                                  if calls[name] else None))
+        for name in ("decode", "append")}
 
 
 def phase5(pa, dev, card):
@@ -403,7 +544,7 @@ def phase5(pa, dev, card):
             for i, p in enumerate(rng.integers(128, 1025, 8))]
 
     times = {"decode": [], "append": []}
-    append_tokens = []
+    append_tokens, chunk_lens = [], set()
 
     def timed(name, step):
         def run(params, cache, batch):
@@ -414,6 +555,7 @@ def phase5(pa, dev, card):
             if name == "append":
                 append_tokens.append(int(batch["active"].sum())
                                      * batch["tokens"].shape[-1])
+                chunk_lens.add(int(batch["tokens"].shape[-1]))
             return out
         return run
 
@@ -421,12 +563,13 @@ def phase5(pa, dev, card):
     engine.decode_step = timed("decode", engine.decode_step)
     engine.append_step = timed("append", engine.append_step)
     torch.cuda.reset_peak_memory_stats()
-    pa.launches = 0  # count the main path's launches only
+    reset_counts(pa)  # count the main path's launches only
     t0 = time.perf_counter()
     comps = engine.run([r.clone() for r in reqs])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = pa.launches
+    variants = dict(getattr(pa, "variant_launches", {}))
     st = engine.stats
     assert [c.rid for c in comps] == [r.rid for r in reqs]
     for r, c in zip(reqs, comps):
@@ -434,30 +577,22 @@ def phase5(pa, dev, card):
     expected = st.calls * eng.n_slots * cfg.n_layers
     assert launches == expected > 0, (launches, expected)
 
-    # the kernel's share of wall time, from a second run of the same trace
-    # with CUDA events around each launch (kept out of the timed run above)
-    real, events = pa.paged_attention_kernel, []
-
-    def evented(*args, **kw):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        out = real(*args, **kw)
-        e.record()
-        events.append((s, e))
-        return out
-
-    pa.paged_attention_kernel = evented
-    again = ServeEngine(cfg, eng, params, opts, device=dev)
-    t1 = time.perf_counter()
-    comps2 = again.run([r.clone() for r in reqs])
-    torch.cuda.synchronize()
-    wall2 = time.perf_counter() - t1
-    pa.paged_attention_kernel = real
-    kernel_s = sum(s.elapsed_time(e) for s, e in events) / 1e3
+    # K2's device time by mode, from a profiled second run of the same
+    # trace: the kernels' own durations on the card (CUDA events around
+    # the wrapper would also count the host's enqueue time, since the card
+    # idles between this host-bound loop's launches), each attributed to
+    # the decode or append call it ran in
+    comps2, wall2, by_mode = profile_k2_by_mode(
+        pa, lambda: ServeEngine(cfg, eng, params, opts, device=dev), reqs)
+    kernel_s = sum(v["kernel_s"] for v in by_mode.values())
+    for v in by_mode.values():
+        v["share_of_wall"] = v["kernel_s"] / wall
     assert [c.tokens for c in comps2] == [c.tokens for c in comps], \
         "the same trace gave different tokens on a second run"
-    ops_per_decode, busy_ms = profile_decode_call(again, reqs[0])
+    busy_by_class = {}
+    ops_per_decode, busy_ms = profile_decode_call(
+        ServeEngine(cfg, eng, params, opts, device=dev), reqs[0],
+        busy_by_class)
     decode_ms = 1e3 * float(np.median(times["decode"]))
     rec = dict(
         card=card, layers=cfg.n_layers, d_model=cfg.d_model, dtype="bfloat16",
@@ -473,14 +608,23 @@ def phase5(pa, dev, card):
         prefill_chunk_ms_per_call=1e3 * float(np.mean(times["append"])),
         prefill_tokens_per_s=sum(append_tokens) / sum(times["append"]),
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
-        kernel_share_of_wall=kernel_s / wall2, kernel_s=kernel_s,
+        kernel_share_of_wall=kernel_s / wall, kernel_s=kernel_s,
+        kernel_by_mode=by_mode, variant_launches=variants,
+        append_chunk_lens=sorted(chunk_lens),
+        append_ms_per_call=1e3 * float(np.median(times["append"])),
         host_ops_per_decode_call=ops_per_decode,
         decode_device_busy_ms=busy_ms,
+        decode_device_busy_ms_by_class=busy_by_class,
         decode_device_idle_share=(None if busy_ms is None
                                   else 1.0 - busy_ms / decode_ms),
-        instrumented_wall_s=wall2, param_init_s=init_s,
+        profiled_wall_s=wall2, param_init_s=init_s,
         ttft_p50_ticks=st.summary().get("ttft_p50"))
     say("phase 5: full chatglm3-6b bf16 paged serving:", json.dumps(rec))
+    if variants:  # decode calls take split-KV, bf16 append chunks the tile
+        slots_layers = eng.n_slots * cfg.n_layers
+        assert variants == {
+            "split_kv": len(times["decode"]) * slots_layers,
+            "append_mma": len(times["append"]) * slots_layers}, variants
     return rec, launches
 
 
@@ -616,8 +760,10 @@ def model_flops_per_step(cfg, eng, seq):
 
 def kernel_class(name: str) -> str:
     n = name.lower()
-    if "flash_attention_kernel" in n:
+    if any(k in name for k in K1_KERNELS):
         return "k1_flash_attention"
+    if any(k in name for k in K2_KERNELS):
+        return "k2_paged_attention"
     if any(t in n for t in ("gemm", "gemv", "cutlass", "xmma", "cublas")):
         return "matmul"
     if "reduce" in n:
@@ -666,7 +812,8 @@ def profile_train_step(cfg, opts, eng, seq, dev):
             by_class[c] = by_class.get(c, 0.0) + e.time_range.elapsed_us() / 1e3
             n += 1
     return dict(profiled_step_ms=1e3 * wall, device_kernels=n,
-                device_busy_ms=sum(by_class.values()), busy_ms_by_class=by_class)
+                device_busy_ms=sum(by_class.values()),
+                busy_ms_by_class=by_class)
 
 
 def phase7(fa, dev, card):
@@ -717,7 +864,7 @@ def phase7(fa, dev, card):
     tracer = Tracer()
     pl.make_train_step, fa.flash_attention_kernel = timed_make, evented
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0  # count the training path's launches only
+    reset_counts(fa)  # count the training path's launches only
     t0 = time.perf_counter()
     try:
         out = hydra.run_model_selection(cfg, opts, hc, trials, base,
@@ -727,6 +874,7 @@ def phase7(fa, dev, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fa.launches
+    variants = dict(getattr(fa, "variant_launches", {}))
     peak = torch.cuda.max_memory_allocated()
     gang = [e for e in tracer.events if e["ev"] == "span_begin"
             and e["name"] == "gang"]
@@ -763,7 +911,7 @@ def phase7(fa, dev, card):
         model_tflops_per_s=flops / (step_ms / 1e3) / 1e12,
         share_of_fp32_peak=flops / (step_ms / 1e3) / PEAK_OPS[torch.float32],
         kernel_launches=launches, expected_launches=expected,
-        kernel_s_in_steps=kernel_s,
+        variant_launches=variants, kernel_s_in_steps=kernel_s,
         kernel_share_of_step_time=kernel_s / sum(step_s),
         max_memory_allocated_gb=peak / 1e9,
         # the planner's memory model for the gang: per stage and trial,
@@ -1062,15 +1210,30 @@ def phase10(ms, dev, card):
     return rec, launches
 
 
+PHASES = tuple(range(1, 11))
+
+
+def write_json(path: str, res: dict) -> None:
+    out = Path(path)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(res, indent=1))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write every measured "
                     "number to this JSON file")
+    ap.add_argument("--phases", default="", help="comma-separated phases "
+                    "to run (default all; phase 1, the build, always runs). "
+                    "A partial run prints neither the kernels line nor the "
+                    "last line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device: the smoke test needs a GPU",  # noqa: T201
               file=sys.stderr)
         return 2
+    run = ({int(x) for x in args.phases.split(",")} | {1} if args.phases
+           else set(PHASES))
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_attention as fa
@@ -1092,39 +1255,61 @@ def main(argv=None) -> int:
         say(f"phase 1: built {kbuild.library_path(source).name} from "
             f"{source.relative_to(ROOT)}")
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling" in line:
                 say("  nvcc:", line.strip())
     build_s = time.perf_counter() - t0
     say(f"phase 1: {len(builds)} kernels built in {build_s:.2f} s")
 
-    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
-    p2 = phase2(pa, dev, flush, card)
-    p3 = phase3(fa, ops, dev, flush, card)
-    del flush
-    p4 = phase4(dev)
+    res = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
+               build_s=build_s)
+
+    def tidy():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the flush (a 512 MiB memset, about 0.2 ms) also keeps the card busy
+    # while the host enqueues the timed call, so a short kernel's time
+    # holds no host gap
+    new_flush = lambda: torch.empty(512 * 2**20 // 4, dtype=torch.float32,
+                                    device=dev)
+    flush = new_flush()
+    if 2 in run:
+        res["phase2"] = phase2(pa, dev, flush, card)
+    if 3 in run:
+        res["phase3"] = phase3(fa, ops, dev, flush, card)
+    del flush  # kept out of the serving and training phases' peak memory
+    if 4 in run:
+        res["phase4"] = phase4(dev)
     # phase 4's engine holds its weights in a reference cycle (the transfer
     # engine's cache callbacks): collect it, or its ~3.8 GB lingers into
     # phase 5's peak memory
-    gc.collect()
-    torch.cuda.empty_cache()
-    p5, pa_launches = phase5(pa, dev, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    p6 = phase6(dev, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    p7, fa_launches = phase7(fa, dev, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
-    p8, scan_grad_err = phase8(ms, ops, dev, flush, card)
-    del flush
-    gc.collect()
-    torch.cuda.empty_cache()
-    p9 = phase9(ms, dev, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    p10, ms_launches = phase10(ms, dev, card)
+    tidy()
+    if 5 in run:
+        res["phase5"], pa_launches = phase5(pa, dev, card)
+        tidy()
+    if 6 in run:
+        res["phase6"] = phase6(dev, card)
+        tidy()
+    if 7 in run:
+        res["phase7"], fa_launches = phase7(fa, dev, card)
+        tidy()
+    if 8 in run:
+        flush = new_flush()
+        res["phase8"], res["phase8_grad_rel_err"] = phase8(ms, ops, dev,
+                                                           flush, card)
+        del flush
+        tidy()
+    if 9 in run:
+        res["phase9"] = phase9(ms, dev, card)
+        tidy()
+    if 10 in run:
+        res["phase10"], ms_launches = phase10(ms, dev, card)
+    if run != set(PHASES):
+        if args.out:
+            write_json(args.out, res)
+        say(f"partial run (phases {sorted(run)}): every phase run passed")
+        return 0
+    p2, p3, p8 = res["phase2"], res["phase3"], res["phase8"]
 
     row = next(c for c in p2
                if c["case"] == "decode" and c["dtype"] == "bfloat16")
@@ -1154,14 +1339,9 @@ def main(argv=None) -> int:
         "ms": srow["ms"], "plain_ms": srow["plain_ms"],
         "bound_ms": srow["bound_ms"], "bound_by": srow["bound_by"],
         "library_ms": None}]}
+    res["kernels"] = kernels["kernels"]
     if args.out:
-        out = Path(args.out)
-        out.parent.mkdir(parents=True, exist_ok=True)
-        out.write_text(json.dumps(dict(
-            card=card, torch=torch.__version__, cuda=torch.version.cuda,
-            build_s=build_s, phase2=p2, phase3=p3, phase4=p4, phase5=p5,
-            phase6=p6, phase7=p7, phase8=p8, phase8_grad_rel_err=scan_grad_err,
-            phase9=p9, phase10=p10, kernels=kernels["kernels"]), indent=1))
+        write_json(args.out, res)
     say(json.dumps(kernels))
     say("card:", card_line())
     say(json.dumps({"ok": True, "device": {

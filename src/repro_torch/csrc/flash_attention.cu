@@ -14,72 +14,191 @@
 // out = acc / max(l, 1e-30).
 //
 // What bounds it on this card: operations. Each K/V element a block loads
-// serves 64 query rows (4 * hd * 64 FLOPs per key and row tile), far above
-// the H100's ridge, so the floor is 4 * hd * hq * (attended pairs) over
-// the peak rate of the arithmetic. This first version does all arithmetic
-// in fp32 on the CUDA cores (67 TFLOP/s), which the reference's 2e-5 fp32
-// tolerance needs anyway (TF32 would not meet it). The design keeps the
-// CUDA cores fed:
-//   * one block per (64-row query tile, query head, batch row); the kv
-//     loop lives inside the block with (m, l, acc) in registers, since
-//     Hopper's blocks run in no order (the Pallas grid's sequential kv axis
-//     becomes this loop);
-//   * tiles wholly above the causal diagonal or outside the window are
-//     skipped (they change no value), and the longest causal tiles are
-//     launched first;
-//   * 256 threads as 16 x 16: each thread scores 4 rows x 4 keys (keys
-//     tx + 16 j) with 16-byte shared-memory reads, 8 loads per 64 FMAs,
-//     and accumulates 4 rows x hd / 16 output columns;
-//   * Q and K tiles sit in shared memory in fp32 with rows padded to
-//     hd + 4 floats so those 16-byte reads hit distinct banks; P is stored
-//     transposed over the K tile once the scores are done.
-// mma.sync / wgmma, cp.async or TMA double buffering and a backward kernel
-// are later work.
+// serves 64 query rows (4 * hd FLOPs per key and row), far above the
+// H100's ridge, so the floor is 4 * hd * hq * (attended pairs) over the
+// peak rate of the arithmetic. Both variants keep one block per query tile
+// of one head with the kv loop inside it and (m, l, acc) in registers
+// (Hopper's blocks run in no order: the Pallas grid's sequential kv axis
+// becomes this loop), skip tiles wholly above the causal diagonal or
+// outside the window (they change no value), launch the longest causal
+// tiles first, and stage every tile with cp.async.
+//
+// bf16: an FA2-style forward on the tensor cores (989 TFLOP/s). 4 warps
+// own 16 query rows each; Q is loaded once into shared memory (the ring's
+// second stage, so a block takes 70 KB and three share an SM) and then into
+// A fragments; 64-key K / V tiles come through a 2-stage cp.async ring
+// with one barrier per tile (a warp skips the tiles its own rows cannot
+// see). 8-warp blocks and 128-key tiles measured within 4 % of this, either
+// side (scripts/attention_variants.py). S = Q K^T and O += P V run through
+// mma.sync m16n8k16 with fp32 accumulators, P rounded to bf16 in registers
+// (hi + lo) as the A fragments of P V and V read with ldmatrix.trans
+// (attention_tile.cuh).
+//
+// fp32: CUDA cores (67 TFLOP/s), because the reference's 2e-5 tolerance
+// rules out TF32. 256 threads as 16 x 16 own 64 query rows: each thread
+// scores 4 rows x 4 keys (keys tx + 16 j) with 16-byte shared-memory reads
+// and accumulates 4 rows x hd / 16 output columns. Q, K tiles have rows
+// padded to hd + 4 floats so those reads hit distinct banks; P is stored
+// transposed over the consumed K tile. About 100 KB of shared memory, so
+// two blocks share an SM and one's barriers hide behind the other's FMAs;
+// that leaves no room for a second K / V stage, so cp.async lets each
+// tile's V load under its scores instead. (A 128-row block of 512 threads
+// with a double-buffered ring, one block an SM, measured slower: 1.47 ms
+// against 1.37 at the training shape.) wgmma with TMA, and a backward
+// kernel, are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
+#include "attention_tile.cuh"
+
 namespace {
+
+using attn::kNegInf;
+using bf16 = __nv_bfloat16;
+constexpr unsigned kFull = 0xffffffffu;
+
+
+// the kv tiles any row of a query tile [q0, q0 + rows) can attend
+template <int BK>
+struct KvRange {
+  int t_begin, t_end;
+  __device__ KvRange(int q0, int rows, int sq, int sk, int causal,
+                     int window, int kv_offset) {
+    const int q_last = min(q0 + rows, sq) - 1 + kv_offset;
+    const int kv_end = causal ? min(sk, q_last + 1) : sk;
+    const int kv_begin = window > 0 ? max(0, q0 + kv_offset - window + 1) : 0;
+    t_begin = kv_begin / BK;
+    t_end = kv_end > 0 ? (kv_end + BK - 1) / BK : 0;
+  }
+};
+
+// rows [r0, r0 + rows) of a (.., seq, heads, HD) tensor's head `head` ->
+// shared rows of `stride` elements by cp.async; rows past `seq_len` are
+// zero-filled
+template <typename T, int HD>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ src, T* dst,
+                                           int stride, int r0, int rows,
+                                           int seq_len, int heads, int head,
+                                           size_t batch_row) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kChunks = HD / kVec;
+  for (int c = threadIdx.x; c < rows * kChunks; c += blockDim.x) {
+    const int r = c / kChunks;
+    const int d0 = (c - r * kChunks) * kVec;
+    const bool ok = r0 + r < seq_len;
+    const T* s = ok ? src + ((batch_row * seq_len + r0 + r) * heads + head) *
+                                HD + d0
+                    : src;
+    attn::cp_async16(dst + r * stride + d0, s, ok);
+  }
+}
+
+// ------------------------------------------------------- bf16: tensor cores
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaMinBlocks = 3;  // resident blocks per SM (register cap)
+constexpr int kMmaRows = 16 * kMmaWarps;  // query rows per block
+constexpr int kMmaKeys = 64;              // keys per K / V tile
+
+template <int HD>
+constexpr size_t mma_smem_bytes() {  // 2 x (K, V); Q lives in stage 1
+  static_assert(kMmaRows <= 2 * kMmaKeys, "Q fits stage 1");
+  return (size_t)4 * kMmaKeys * (HD + 8) * sizeof(bf16);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaWarps * 32, kMmaMinBlocks)
+flash_attention_mma_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ out,
+                           int sq, int sk, int hq, int hkv, int causal,
+                           int window, int kv_offset, float scale_log2) {
+  constexpr int kStride = HD + 8;
+  constexpr int kTile = kMmaKeys * kStride;  // one K or V tile
+  extern __shared__ uint4 smem_u4[];
+  // stage s: K at 2 s kTile, V next. Q is staged in stage 1 and moves to
+  // registers before the ring first refills it.
+  bf16* kv_s = reinterpret_cast<bf16*>(smem_u4);
+  bf16* q_s = kv_s + 2 * kTile;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaRows;  // longest first
+  const int h = blockIdx.y;
+  const size_t ib = blockIdx.z;
+  const int hk = h / (hq / hkv);
+  const KvRange<kMmaKeys> range(q0, kMmaRows, sq, sk, causal, window,
+                                kv_offset);
+
+  // this lane's rows g and g + 8 of its warp: keys lo .. hi (inclusive)
+  int lo[2], hi[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = q0 + warp * 16 + (lane >> 2) + 8 * rr;
+    const int qpos = row + kv_offset;
+    hi[rr] = row < sq ? (causal ? min(qpos, sk - 1) : sk - 1) : -1;
+    lo[rr] = window > 0 ? max(qpos - window + 1, 0) : 0;
+  }
+  // the keys this warp's rows can attend (a warp skips the tiles outside)
+  const bool live0 = hi[0] >= lo[0], live1 = hi[1] >= lo[1];
+  const int warp_lo = __reduce_min_sync(
+      kFull, min(live0 ? lo[0] : INT_MAX, live1 ? lo[1] : INT_MAX));
+  const int warp_hi = __reduce_max_sync(
+      kFull, max(live0 ? hi[0] : -1, live1 ? hi[1] : -1));
+
+  auto load_tile = [&](int t) {
+    bf16* k_dst = kv_s + ((t - range.t_begin) & 1) * 2 * kTile;
+    stage_rows<bf16, HD>(k, k_dst, kStride, t * kMmaKeys, kMmaKeys, sk, hkv,
+                         hk, ib);
+    stage_rows<bf16, HD>(v, k_dst + kTile, kStride, t * kMmaKeys, kMmaKeys,
+                         sk, hkv, hk, ib);
+  };
+
+  stage_rows<bf16, HD>(q, q_s, kStride, q0, kMmaRows, sq, hq, h, ib);
+  if (range.t_begin < range.t_end) load_tile(range.t_begin);
+  attn::cp_async_commit();
+
+  attn::RowState<HD> st;
+  st.init();
+  uint32_t qf[HD / 16][4];
+  for (int t = range.t_begin; t < range.t_end; ++t) {
+    attn::cp_async_wait<0>();  // tile t (and, first, Q) has landed
+    __syncthreads();           // ... for every thread; tile t - 1 is done
+    if (t == range.t_begin) {
+      attn::load_q_fragments<HD>(qf, q_s, kStride, warp * 16);
+      __syncthreads();  // Q is in registers: stage 1 may refill
+    }
+    if (t + 1 < range.t_end) load_tile(t + 1);
+    attn::cp_async_commit();
+    if (warp_hi < t * kMmaKeys || warp_lo >= (t + 1) * kMmaKeys) continue;
+    const bf16* k_s = kv_s + ((t - range.t_begin) & 1) * 2 * kTile;
+    attn::attend_tile<HD, kMmaKeys>(qf, k_s, k_s + kTile, kStride,
+                                    t * kMmaKeys, lo, hi, scale_log2, st);
+  }
+  attn::cp_async_wait<0>();
+
+  const int tq = lane & 3;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = q0 + warp * 16 + (lane >> 2) + 8 * rr;
+    if (row >= sq) continue;
+    const float inv = st.inv_l(rr);
+    bf16* o = out + ((ib * sq + row) * hq + h) * HD;
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i)
+      *reinterpret_cast<uint32_t*>(o + i * 8 + 2 * tq) = attn::pack_bf16(
+          st.acc[i][2 * rr] * inv, st.acc[i][2 * rr + 1] * inv);
+  }
+}
+
+// ---------------------------------------------------------- fp32: CUDA cores
 
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kBQ = 64;        // query rows per block: 4 per thread row
 constexpr int kBK = 64;        // keys per tile: 4 per thread column
 constexpr int kPStride = kBQ + 4;  // P^T rows (conflict-free float4 stores)
-constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// 16 bytes of T -> fp32: 4 floats or 8 bf16 values
-__device__ __forceinline__ void load16(const float* src, float* dst) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x;
-  dst[1] = v.y;
-  dst[2] = v.z;
-  dst[3] = v.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
-  const uint4 v = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
 
 template <int HD>
 struct Layout {
@@ -90,39 +209,14 @@ struct Layout {
       ((size_t)kBQ * kStride + kKRegion + (size_t)kBK * HD) * sizeof(float);
 };
 
-// rows [r0, r0 + rows) of a (.., seq, heads, HD) tensor's head `head` ->
-// fp32 shared rows of `stride` floats; rows past `seq_len` are zero
-template <typename T, int HD>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src,
-                                           float* dst, int stride, int r0,
-                                           int rows, int seq_len, int heads,
-                                           int head, size_t batch_row) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = HD / kVec;
-  for (int c = threadIdx.x; c < rows * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int d0 = (c - r * kChunks) * kVec;
-    float f[kVec];
-    if (r0 + r < seq_len) {
-      load16(src + ((batch_row * seq_len + r0 + r) * heads + head) * HD + d0,
-             f);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) f[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < kVec; e += 4)
-      *reinterpret_cast<float4*>(dst + r * stride + d0 + e) =
-          make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]);
-  }
-}
-
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int sq,
-                       int sk, int hq, int hkv, int causal, int window,
-                       int kv_offset, float scale) {
+flash_attention_fp32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            float* __restrict__ out, int sq, int sk, int hq,
+                            int hkv, int causal, int window, int kv_offset,
+                            float scale) {
   using Lay = Layout<HD>;
   constexpr int kStride = Lay::kStride;
   // output columns per thread: 16-byte groups (tx * 4 + 64 * c) when
@@ -142,13 +236,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const size_t ib = blockIdx.z;
   const int hk = h / (hq / hkv);
+  const KvRange<kBK> range(q0, kBQ, sq, sk, causal, window, kv_offset);
 
-  stage_rows<T, HD>(q, q_s, kStride, q0, kBQ, sq, hq, h, ib);
-
-  // the kv range any row of this tile can attend
-  const int q_last = min(q0 + kBQ, sq) - 1 + kv_offset;
-  const int kv_end = causal ? min(sk, q_last + 1) : sk;
-  const int kv_begin = window > 0 ? max(0, q0 + kv_offset - window + 1) : 0;
+  stage_rows<float, HD>(q, q_s, kStride, q0, kBQ, sq, hq, h, ib);
+  attn::cp_async_commit();
 
   float m[4], l[4], acc[4][kCols];
 #pragma unroll
@@ -159,10 +250,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
   }
 
-  for (int k0 = (kv_begin / kBK) * kBK; k0 < kv_end; k0 += kBK) {
-    __syncthreads();  // the previous tile's P and V are consumed
-    stage_rows<T, HD>(k, k_s, kStride, k0, kBK, sk, hkv, hk, ib);
-    stage_rows<T, HD>(v, v_s, HD, k0, kBK, sk, hkv, hk, ib);
+  for (int t = range.t_begin; t < range.t_end; ++t) {
+    const int k0 = t * kBK;
+    __syncthreads();  // the previous tile's P^T and V are consumed
+    stage_rows<float, HD>(k, k_s, kStride, k0, kBK, sk, hkv, hk, ib);
+    attn::cp_async_commit();
+    stage_rows<float, HD>(v, v_s, HD, k0, kBK, sk, hkv, hk, ib);
+    attn::cp_async_commit();
+    attn::cp_async_wait<1>();  // Q and K have landed; V loads under S
     __syncthreads();
 
     // scores: rows ty * 4 + i, keys tx + 16 * j
@@ -235,6 +330,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < 4; ++j)
       *reinterpret_cast<float4*>(p_s + (tx + 16 * j) * kPStride + ty * 4) =
           make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
+    attn::cp_async_wait<0>();  // V has landed
     __syncthreads();
 
     // acc += P · V (masked keys carry p = 0)
@@ -267,54 +363,54 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
+  attn::cp_async_wait<0>();
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* orow = out + ((ib * sq + row) * hq + h) * HD;
+    float* orow = out + ((ib * sq + row) * hq + h) * HD;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = kVecCols ? tx * 4 + 16 * (c & ~3) + (c & 3)
                                : tx + 16 * c;
-      orow[col] = from_float<T>(acc[i][c] * inv);
+      orow[col] = acc[i][c] * inv;
     }
   }
 }
 
-template <typename T, int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* out, int b,
-              int sq, int sk, int hq, int hkv, int causal, int window,
-              int kv_offset, float scale, cudaStream_t stream) {
-  const size_t smem = Layout<HD>::kSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
-  flash_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, sk, hq, hkv,
-      causal, window, kv_offset, scale);
-  return static_cast<int>(cudaGetLastError());
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int sq, int sk, int hq, int hkv, int hd, int causal, int window,
-           int kv_offset, float scale, cudaStream_t stream) {
-#define FLASH_ATTENTION_LAUNCH(HD_)                                          \
-  return launch_hd<T, HD_>(q, k, v, out, b, sq, sk, hq, hkv, causal, window, \
-                           kv_offset, scale, stream)
-  switch (hd) {
-    case 16: FLASH_ATTENTION_LAUNCH(16);
-    case 32: FLASH_ATTENTION_LAUNCH(32);
-    case 64: FLASH_ATTENTION_LAUNCH(64);
-    case 128: FLASH_ATTENTION_LAUNCH(128);
+template <int HD>
+int launch_hd(const void* q, const void* k, const void* v, void* out, int b,
+              int sq, int sk, int hq, int hkv, int causal, int window,
+              int kv_offset, int is_bf16, float scale, cudaStream_t stream) {
+  if (is_bf16) {
+    const size_t smem = mma_smem_bytes<HD>();
+    const int err = set_smem(flash_attention_mma_kernel<HD>, smem);
+    if (err) return err;
+    const dim3 grid((sq + kMmaRows - 1) / kMmaRows, hq, b);
+    flash_attention_mma_kernel<HD><<<grid, kMmaWarps * 32, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(out), sq, sk, hq,
+        hkv, causal, window, kv_offset, scale * attn::kLog2e);
+  } else {
+    const size_t smem = Layout<HD>::kSmemBytes;
+    const int err = set_smem(flash_attention_fp32_kernel<HD>, smem);
+    if (err) return err;
+    const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
+    flash_attention_fp32_kernel<HD><<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), sq, sk, hq,
+        hkv, causal, window, kv_offset, scale);
   }
-#undef FLASH_ATTENTION_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -329,9 +425,15 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int causal, int window, int kv_offset,
                                    int is_bf16, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, out, b, sq, sk, hq, hkv, hd,
-                                 causal, window, kv_offset, scale, st);
-  return launch<float>(q, k, v, out, b, sq, sk, hq, hkv, hd, causal, window,
-                       kv_offset, scale, st);
+#define FLASH_ATTENTION_LAUNCH(HD_)                                          \
+  return launch_hd<HD_>(q, k, v, out, b, sq, sk, hq, hkv, causal, window,    \
+                        kv_offset, is_bf16, scale, st)
+  switch (hd) {
+    case 16: FLASH_ATTENTION_LAUNCH(16);
+    case 32: FLASH_ATTENTION_LAUNCH(32);
+    case 64: FLASH_ATTENTION_LAUNCH(64);
+    case 128: FLASH_ATTENTION_LAUNCH(128);
+  }
+#undef FLASH_ATTENTION_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }

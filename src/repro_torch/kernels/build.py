@@ -2,8 +2,9 @@
 into a shared library with a plain C entry, loaded with ``ctypes``.
 
 Each library lands under ``build/repro_torch/`` at the repo root (ignored
-by git), named by a hash of its source and the flags, so an edited source
-rebuilds and an unchanged one is reused. :func:`start` launches ``nvcc``
+by git), named by a hash of its source, the headers beside it and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused. :func:`start` launches ``nvcc``
 without waiting, so a caller can build every kernel at once
 (``chip_smoke.py`` does); :func:`build` is start-then-finish for one.
 """
@@ -28,9 +29,14 @@ class KernelLaunchError(RuntimeError):
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    """The library built from ``source``: named by a hash of the source,
+    every ``*.cuh`` header in its directory (which it may include) and the
+    flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:12]}.so"
 
 
 def start(source: Path) -> Optional[subprocess.Popen]:

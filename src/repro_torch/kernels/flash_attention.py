@@ -3,14 +3,17 @@ plain PyTorch version.
 
 Port of ``repro/kernels/flash_attention.py::flash_attention_bhsd`` (the
 Pallas TPU kernel), the forward of the training path's attention. The
-kernel is ``csrc/flash_attention.cu``, CUDA C++ for ``sm_90a``: grid
-``(ceil(sq / 64), hq, b)``, each block owning 64 query rows of one head and
-looping over the K/V tiles its rows can attend (tiles above the causal
-diagonal or outside the window are skipped), with the reference's
-online-softmax step in fp32 and (m, l, acc) in registers. It reads the
-model's (b, s, h, hd) layout through strides, so the reference's
-transposes to (B·H, S, hd) are not needed, and GQA is indexing (query head
-h reads K/V head h // g): no ``repeat_kv``.
+kernel is ``csrc/flash_attention.cu``, CUDA C++ for ``sm_90a``: each block
+owns a tile of query rows of one head and loops over the K/V tiles its rows
+can attend (tiles above the causal diagonal or outside the window are
+skipped; tiles are staged by ``cp.async``), with the reference's
+online-softmax step in fp32 and (m, l, acc) in registers; 64 rows a
+block. bf16 inputs run on the tensor cores (``mma.sync`` m16n8k16, the
+next K/V tile loading while the current one is consumed); fp32 inputs on
+the CUDA cores, since the reference's 2e-5 tolerance rules out TF32.
+It reads the model's (b, s, h, hd) layout through strides, so the
+reference's transposes to (B·H, S, hd) are not needed, and GQA is indexing
+(query head h reads K/V head h // g): no ``repeat_kv``.
 
 Build and binding as ``kernels/paged_attention.py``: ``kernels.build``
 compiles the source at first use into ``build/repro_torch/`` and
@@ -40,8 +43,11 @@ SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128)  # compiled for each
 
 # kernel launches since the caller last set this to 0 (one per launch, and
-# nowhere else): chip_smoke.py reads it to show the train path ran the kernel
+# nowhere else): chip_smoke.py reads it to show the train path ran the
+# kernel; ``variant_launches`` splits it by variant (bf16 on the tensor
+# cores, fp32 on the CUDA cores)
 launches = 0
+variant_launches = {"mma_bf16": 0, "fp32": 0}
 
 _lib = None
 
@@ -105,6 +111,8 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
         raise kbuild.KernelLaunchError(
             f"flash_attention launch failed: CUDA error {rc}")
     launches += 1
+    variant_launches["mma_bf16" if q.dtype == torch.bfloat16
+                     else "fp32"] += 1
     return out
 
 

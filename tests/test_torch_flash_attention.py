@@ -204,11 +204,22 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# card-only cases beside SWEEP's: the bf16 tensor-core variant at sq not a
+# multiple of its 64-row tile, head_dim 128 and 64, windows and offsets
+CARD_SWEEP = SWEEP + [
+    (1, 100, 100, 32, 2, 128, True, 0, 0, "bfloat16"),
+    (2, 72, 136, 8, 2, 64, True, 0, 64, "bfloat16"),
+    (1, 130, 130, 4, 1, 128, True, 50, 0, "bfloat16"),
+    (1, 130, 130, 4, 1, 128, True, 50, 0, "float32"),
+    (2, 200, 200, 4, 2, 128, False, 0, 0, "bfloat16"),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", [i for i, c in enumerate(SWEEP)
+@pytest.mark.parametrize("case", [i for i, c in enumerate(CARD_SWEEP)
                                   if c[5] in tfa.HEAD_DIMS])
 def test_kernel_vs_plain_on_card(cuda_device, case):
-    b, sq, sk, hq, hkv, hd, causal, window, off, dt = SWEEP[case]
+    b, sq, sk, hq, hkv, hd, causal, window, off, dt = CARD_SWEEP[case]
     q, k, v = (torch.from_numpy(a).to(cuda_device, TDT[dt])
                for a in _qkv(case, b, sq, sk, hq, hkv, hd))
     got = tfa.flash_attention_kernel(q, k, v, causal=causal, window=window,
