@@ -61,9 +61,9 @@ class EngineConfig:
     In serving the K trial rows double as the co-serving axis: each row
     holds one model variant's weights and cache, and the serve engine
     routes per-arch request streams into the matching rows. The reference's
-    mesh-axis names, pod axis, FSDP and the host spill tier are not ported;
-    ``window`` exists so the serve engine can reject it as the reference
-    does (sliding-window serving itself is not ported yet).
+    mesh-axis names, pod axis and FSDP are not ported; ``window`` exists so
+    the serve engine can reject it as the reference does (sliding-window
+    serving itself is not ported yet).
     """
 
     n_trials: int  # K — concurrent model variants
@@ -79,6 +79,9 @@ class EngineConfig:
     block_size: int = 16  # tokens per block
     n_blocks: int = 0  # pool size PER TRIAL; each data shard owns an equal
     # slice of n_blocks / data_size blocks
+    host_blocks: int = 0  # host-memory spill tier PER POOL PARTITION (serve
+    # BlockStore): evicted prefix-cache blocks and retracted requests' KV
+    # swap out here instead of being destroyed; 0 = no host tier
     prefill_chunks: int = 1  # admission chunks per prompt (serve engine)
     vocab_parallel: bool = True  # train loss over S logical vocab shards
     # (per-shard max / sum-exp, as the reference's psum form); False = one
@@ -156,10 +159,13 @@ def vp_embed(cfg: ArchConfig, eng: EngineConfig, embed_k, tokens,
 
 def vp_greedy_tokens(cfg: ArchConfig, eng: EngineConfig, norm_p, head_k, y):
     """Greedy argmax at every position, y (b, s, D) -> ((b, s) int32
-    winners, (b, s) float32 max logits), with the reference's cross-shard
-    rule: each of the S vocab shards takes its own max and first argmax,
-    and an exact tie between shards returns the mean of the tied argmaxes
-    (integer division), as ``psum(where(lmax >= gmax, larg)) // count``."""
+    winners, (b, s) float32 max logits): each of the S vocab shards takes
+    its own max and first argmax, and an exact tie between shards returns
+    the lowest tied id, which is what one argmax over the whole vocabulary
+    returns. (The reference returns the mean of the tied argmaxes,
+    ``psum(where(lmax >= gmax, larg)) // count``: a token that is neither.
+    In bf16 the logits are rounded before the argmax and such ties occur
+    every few hundred tokens.)"""
     x = lm.final_norm_apply(cfg, norm_p, y)
     logits = (x @ head_k).float()  # (b, s, Vp)
     vp, S = logits.shape[-1], eng.n_stages
@@ -170,8 +176,7 @@ def vp_greedy_tokens(cfg: ArchConfig, eng: EngineConfig, norm_p, head_k, y):
     lmax = sh.amax(dim=-1)  # (b, s, S)
     larg = sh.argmax(dim=-1) + torch.arange(S, device=sh.device) * v_s
     gmax = lmax.amax(dim=-1, keepdim=True)
-    win = lmax >= gmax
-    winner = (larg * win).sum(-1) // win.sum(-1).clamp(min=1)
+    winner = torch.where(lmax >= gmax, larg, vp).amin(dim=-1)
     return winner.to(torch.int32), gmax[..., 0]
 
 
@@ -435,25 +440,39 @@ def global_block_tables(eng: EngineConfig, tables):
                        torch.full_like(tables, -1))
 
 
+SERVE_MODES = ("decode", "append", "mixed", "verify")
+
+
 def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
                    params, cache, batch, mode: str):
     """One pipelined serving call over dense strips or the paged pool.
 
     decode: batch = {tokens (K,M,mbg,1), positions (K,M,mbg)} — one new token
     per row at its cache depth. append: tokens (K,M,mbg,qlen) inserted per
-    row starting at ``positions`` (chunked prefill at ragged depths). An
-    optional ``active`` (K,M,mbg) bool row mask: inactive rows compute but
-    never write their cache (the reference's ``put_cache`` row mask), so
-    idle and decoding rows ride along in another row's call untouched.
-    Paged (``eng.paged``): the batch also carries ``block_tables``
-    (K,M,mbg,width) shard-local ids into the pool. Dense: slot (k, m)
-    reads and writes its own strips ``cache[k, m]`` (the engine runs with
-    one cache group per slot). Returns (cache, tokens_out (K,M,mbg) int32,
-    logit_max (K,M,mbg) float32); the cache is updated in place.
+    row starting at ``positions`` (chunked prefill at ragged depths).
+    mixed: append plus ``qlens`` (K,M,mbg) int32, each row's real query
+    count (chunk width for a prefilling row, 1 for a decoding row, 0 for an
+    idle one): one call advances prefill and decode rows together, and the
+    head reads each row at its own last real position ``qlens - 1``.
+    verify: mixed's ragged append with the head at EVERY position —
+    tokens_out / logit_max come back (K,M,mbg,qlen), position i holding
+    what decode at that depth would emit (the speculative target scores a
+    drafter's proposals and its own bonus token in one call); positions at
+    or past a row's ``qlens`` are padding the caller discards. In ragged
+    calls a row's padded positions are clamped to its last real one (they
+    compute but never write). An optional ``active`` (K,M,mbg) bool row
+    mask: inactive rows compute but never write their cache (the
+    reference's ``put_cache`` row mask), so idle and decoding rows ride
+    along in another row's call untouched. Paged (``eng.paged``): the batch
+    also carries ``block_tables`` (K,M,mbg,width) shard-local ids into the
+    pool. Dense: slot (k, m) reads and writes its own strips ``cache[k, m]``
+    (the engine runs with one cache group per slot). Returns (cache,
+    tokens_out (K,M,mbg) int32, logit_max (K,M,mbg) float32); the cache is
+    updated in place.
     """
-    if mode not in ("decode", "append"):
+    if mode not in SERVE_MODES:
         raise NotImplementedError(f"serve mode {mode!r} is not ported yet "
-                                  f"(decode/append only)")
+                                  f"(one of {SERVE_MODES})")
     _check_family(cfg)
     if eng.paged:
         _check_paged_support(cfg, eng)
@@ -466,13 +485,16 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
     l_s = plan.layers_per_stage
     tokens, positions = batch["tokens"], batch["positions"]
     active = batch.get("active")
+    qlens = batch.get("qlens") if mode in ("mixed", "verify") else None
+    stack_mode = "decode" if mode == "decode" else "append"
     tables = (global_block_tables(eng, batch["block_tables"]) if eng.paged
               else None)
     mbg, qlen = tokens.shape[-2], tokens.shape[-1]
     dev = tokens.device
     steps = torch.arange(qlen, device=dev)
-    tok_out = torch.zeros(tokens.shape[:3], dtype=torch.int32, device=dev)
-    val_out = torch.zeros(tokens.shape[:3], dtype=torch.float32, device=dev)
+    out_shape = tokens.shape if mode == "verify" else tokens.shape[:3]
+    tok_out = torch.zeros(out_shape, dtype=torch.int32, device=dev)
+    val_out = torch.zeros(out_shape, dtype=torch.float32, device=dev)
     trials = unstack_trials(params)
     acts = [None] * S  # stage s's output of the previous tick
     for t in range(eng.n_ticks):
@@ -493,19 +515,38 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
             c = {"layers": {n: v[cell][lo:lo + l_s]
                             for n, v in cache["layers"].items()},
                  "shared": None}
+            start = positions[k, m]
+            pos = start[:, None] + steps[None, :]
+            ql = None if qlens is None else qlens[k, m]
+            if ql is not None:
+                # padded positions clamp to the row's last real one: they
+                # compute (writes dropped, outputs discarded) but stay
+                # inside the rope range
+                pos = torch.minimum(pos, (start + (ql - 1).clamp(min=0))
+                                    [:, None])
             y, _ = lm.stack_apply(
-                cfg, opts, p_layers, x,
-                pos=positions[k, m][:, None] + steps[None, :], mode=mode,
-                cache=c, layer_mask=[lo + i < cfg.n_layers
-                                     for i in range(l_s)],
-                kv_offset=positions[k, m],
+                cfg, opts, p_layers, x, pos=pos, mode=stack_mode, cache=c,
+                layer_mask=[lo + i < cfg.n_layers for i in range(l_s)],
+                kv_offset=start,
                 block_tables=None if tables is None else tables[k, m],
-                write_mask=None if active is None else active[k, m])
+                write_mask=None if active is None else active[k, m],
+                q_lens=ql)
             nxt[s] = y
             if s == S - 1:  # the slot drains: greedy head
+                norm_k, head_k = params["final_norm"][k], params["head"][k]
+                if mode == "verify":
+                    tok_out[k, m], val_out[k, m] = vp_greedy_tokens(
+                        cfg, eng, norm_k, head_k, y)
+                    continue
+                if ql is not None:
+                    # a ragged row's chunk ends at its own qlens - 1, not
+                    # at the padded trailing column
+                    sel = (ql.long() - 1).clamp(0, qlen - 1)
+                    y_head = y[torch.arange(mbg, device=dev), sel][:, None]
+                else:
+                    y_head = y[:, -1:]
                 tok_out[k, m], val_out[k, m] = vp_greedy_token(
-                    cfg, eng, params["final_norm"][k], params["head"][k],
-                    y[:, -1:])
+                    cfg, eng, norm_k, head_k, y_head)
         acts = nxt
     return cache, tok_out, val_out
 
@@ -513,16 +554,16 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
 def make_serve_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
                     mode: str) -> Callable:
     """fn(params, cache, batch) -> (cache, tokens, logit_max) running
-    :func:`pipeline_serve` in ``mode`` (decode | append). PyTorch runs
-    eagerly, so there is nothing to compile; the reference's
+    :func:`pipeline_serve` in ``mode`` (decode | append | mixed | verify).
+    PyTorch runs eagerly, so there is nothing to compile; the reference's
     ``with_active`` flag is implied by an ``active`` batch entry."""
     if mode in ("mixed", "verify") and cfg.family in ("ssm", "hybrid"):
         raise ValueError("mixed-tick/verify serving is attention-family "
                          "only: ragged padded tokens would advance "
                          "recurrent SSM state")
-    if mode not in ("decode", "append"):
+    if mode not in SERVE_MODES:
         raise NotImplementedError(f"serve mode {mode!r} is not ported yet "
-                                  f"(decode/append only)")
+                                  f"(one of {SERVE_MODES})")
     _check_family(cfg)
     if eng.paged:
         _check_paged_support(cfg, eng)

@@ -1,11 +1,25 @@
 """Serving launcher of the PyTorch port: a Poisson request stream through the
-continuous-batching engine (split admission) over dense per-slot cache
-strips (the default) or the paged KV pool, on the card by default.
+continuous-batching engine over dense per-slot cache strips (the default)
+or the paged KV pool, on the card by default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \\
         --paged --paged-kernel --n-data 1 --n-model 2 --slots 2 \\
         --microbatch 2 --n-requests 8 --rate 1.0 --prompt-len 256 \\
         --gen-len 32 --dtype bfloat16
+
+    # the paged serve features: radix prefix cache, fused mixed-tick
+    # admission, overcommit retraction over a host tier
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \\
+        --paged --paged-kernel --prefix-cache --fused-admission \\
+        --overcommit 1.5 --host-blocks 64 --n-model 2 --slots 2 \\
+        --microbatch 2 --n-requests 8 --prompt-len 256 --gen-len 32 \\
+        --dtype bfloat16
+
+    # gang speculation: a drafter row per target row, gamma 3
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \\
+        --paged --paged-kernel --spec-draft chatglm3-6b --spec-gamma 3 \\
+        --n-model 2 --slots 2 --microbatch 2 --n-requests 8 \\
+        --prompt-len 256 --gen-len 32 --dtype bfloat16
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
         --n-model 2 --slots 2 --microbatch 2 --n-requests 8 --rate 1.0 \\
@@ -14,20 +28,28 @@ strips (the default) or the paged KV pool, on the card by default.
     # CPU smoke runs (plain PyTorch versions of the kernels, reduced config)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \\
         --smoke --paged --paged-kernel --n-model 2 --slots 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \\
+        --smoke --paged --paged-kernel --prefix-cache --fused-admission \\
+        --overcommit 1.5 --host-blocks 8 --n-model 2 --slots 2 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
         --smoke --n-model 2 --slots 2 --device cpu
 
-Weights are random, drawn from ``--seed``. ``--slots`` and ``--n-blocks``
-are explicit (capacity planning is not ported yet); ``--n-blocks 0`` backs
-every cell at ``max_seq``. For the ssm family (falcon-mamba-7b, dense
-only) the launcher sets ``use_mamba_kernel``, as the train launcher sets
-``use_flash_kernel``: every prefill / append scan goes through
-``kernels.ops.mamba_scan``, which runs the CUDA selective-scan kernel on
-the card and its plain PyTorch version on the CPU.
+Weights are random, drawn from ``--seed``; with ``--arches K`` the gang
+co-serves K variants (trial rows of independent weights) and the trace
+routes each request to one of them (``--arch-weights``). ``--spec-draft``
+adds a drafter row per target row, with weights of its own.
+``--slots`` and ``--n-blocks`` are explicit (capacity planning is not
+ported yet); ``--n-blocks 0`` backs every cell at ``max_seq``. For the ssm
+family (falcon-mamba-7b, dense only) the launcher sets
+``use_mamba_kernel``, as the train launcher sets ``use_flash_kernel``:
+every prefill / append scan goes through ``kernels.ops.mamba_scan``, which
+runs the CUDA selective-scan kernel on the card and its plain PyTorch
+version on the CPU.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 
@@ -40,6 +62,7 @@ from repro_torch.launch.mesh import resolve_device
 from repro_torch.models.layers import ModelOptions
 from repro_torch.obs import report
 from repro_torch.serve import POLICIES, ServeEngine, blocks_for, poisson_trace
+from repro_torch.tree import tree_items
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -53,6 +76,12 @@ def build_args():
                     help="logical data shards (pool partitions per trial)")
     ap.add_argument("--n-model", type=int, default=1,
                     help="pipeline stages S (run in one process)")
+    ap.add_argument("--arches", type=int, default=1,
+                    help="model variants K co-served by one gang (trial "
+                    "rows); requests are routed by their arch id")
+    ap.add_argument("--arch-weights", default="",
+                    help="comma arrival weights per arch for the synthetic "
+                    "trace (default uniform)")
     ap.add_argument("--slots", type=int, default=2,
                     help="microbatch slots M per trial")
     ap.add_argument("--microbatch", type=int, default=1,
@@ -75,6 +104,16 @@ def build_args():
                        "ssm family's recurrent state, scanned by the CUDA "
                        "selective-scan kernel on the card and its plain "
                        "PyTorch version on the CPU)")
+    adm = ap.add_mutually_exclusive_group()
+    adm.add_argument("--fused-admission", action="store_true",
+                     help="fold each round's prefill waves + decode step "
+                     "into ONE mixed-tick pipeline call: prefilling rows "
+                     "ride at their chunk width, decoding rows at qlen 1, "
+                     "idle rows at 0 (attention-family archs; greedy tokens "
+                     "stay bit-identical to the split schedule)")
+    adm.add_argument("--split-admission", action="store_true",
+                     help="one append call per chunk-length group plus a "
+                     "separate decode call per round (the default)")
     ap.add_argument("--paged-kernel", action="store_true",
                     help="attend straight from the block pool through the "
                     "CUDA paged-attention kernel (its plain PyTorch version "
@@ -84,6 +123,36 @@ def build_args():
     ap.add_argument("--n-blocks", type=int, default=0,
                     help="per-trial block-pool size (0 = back every cell at "
                     "max_seq)")
+    ap.add_argument("--overcommit", type=float, default=1.0,
+                    help="paged admission headroom: commit up to this "
+                    "fraction of each pool partition (1.0 = preemption-free; "
+                    "> 1.0 enables retraction — on pool exhaustion the "
+                    "youngest running request is preempted, swapped to the "
+                    "host tier or replayed, and restored later)")
+    ap.add_argument("--host-blocks", type=int, default=0,
+                    help="host-memory spill tier capacity per pool partition "
+                    "(--paged): evicted prefix-cache blocks spill to host "
+                    "instead of being destroyed, and retraction swaps KV out "
+                    "instead of recomputing (0 = no host tier)")
+    ap.add_argument("--no-spill", action="store_true",
+                    help="keep the host tier for retraction payloads only: "
+                    "prefix-cache eviction destroys blocks instead of "
+                    "spilling them")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="radix prefix cache over the paged block pool: "
+                    "completed prompts stay cached and new requests reuse "
+                    "shared-prefix KV blocks (requires --paged)")
+    ap.add_argument("--spec-draft", default="",
+                    help="gang-speculative decoding: pair every target arch "
+                    "with a drafter trial row of THIS arch's shape and its "
+                    "own weights (it must share the target's parameter "
+                    "skeleton and vocab). Drafter rows propose --spec-gamma "
+                    "tokens; the target verifies them in one call. Greedy "
+                    "tokens stay bit-identical; drafter quality only moves "
+                    "the acceptance rate")
+    ap.add_argument("--spec-gamma", type=int, default=3,
+                    help="draft tokens proposed per speculation round")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="float32",
                     help="parameter, activation and KV-cache dtype")
     ap.add_argument("--device", default="cuda",
@@ -92,11 +161,57 @@ def build_args():
     return ap
 
 
-def main(argv=None):
-    args = build_args().parse_args(argv)
+def parse_weights(spec: str, k: int):
+    if not spec:
+        return None
+    w = [float(x) for x in spec.split(",")]
+    if len(w) != k:
+        raise SystemExit(f"--arch-weights needs {k} comma-separated values, "
+                         f"got {len(w)}")
+    return w
+
+
+def check_args(args) -> None:
+    """The reference launcher's flag rules (SystemExit on a bad mix)."""
     if args.slots < 1:
         raise SystemExit("--slots must be >= 1 (capacity planning is not "
                          "ported yet)")
+    if args.prefix_cache and not args.paged:
+        raise SystemExit("--prefix-cache shares paged KV blocks; add --paged")
+    if args.overcommit > 1.0 and not args.paged:
+        raise SystemExit(
+            f"--overcommit {args.overcommit} > 1.0 admits past the block "
+            f"pool and relies on retracting paged block commitments; dense "
+            f"cache strips cannot be retracted — add --paged")
+    if args.paged_kernel and not args.paged:
+        raise SystemExit("--paged-kernel attends through block tables; "
+                         "add --paged")
+    if args.host_blocks < 0:
+        raise SystemExit(f"--host-blocks must be >= 0, got {args.host_blocks}")
+    if (args.host_blocks > 0 or args.no_spill) and not args.paged:
+        raise SystemExit("--host-blocks/--no-spill manage the paged block "
+                         "store's host tier; add --paged")
+    if args.spec_draft and args.fused_admission:
+        raise SystemExit("--spec-draft and --fused-admission both own the "
+                         "round's ragged call structure; pick one")
+    if args.spec_draft and args.spec_gamma < 1:
+        raise SystemExit(f"--spec-gamma must be >= 1, got {args.spec_gamma}")
+
+
+def skeleton(cfg, eng) -> list:
+    """(leaf path, shape, dtype) of one trial's parameters, built on the
+    meta device (nothing is allocated)."""
+    e1 = dataclasses.replace(eng, n_trials=1)
+    params = pl.init_trial_params(cfg, e1, plan_stages(cfg, eng.n_stages),
+                                  torch.Generator(), device="meta")
+    return [(path, tuple(v.shape), v.dtype)
+            for path, v in tree_items(params)]
+
+
+def main(argv=None):
+    args = build_args().parse_args(argv)
+    check_args(args)
+    weights = parse_weights(args.arch_weights, args.arches)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -109,33 +224,69 @@ def main(argv=None):
                                      * args.n_data
                                      * blocks_for(max_seq, args.block_size))
     eng = pl.EngineConfig(
-        n_trials=1, n_microbatches=args.slots, microbatch=args.microbatch,
-        n_stages=args.n_model, data_size=args.n_data, max_seq=max_seq,
-        cache_dtype=dtype, prefill_chunks=args.prefill_chunks,
-        paged=args.paged, block_size=args.block_size, n_blocks=n_blocks)
+        n_trials=args.arches, n_microbatches=args.slots,
+        microbatch=args.microbatch, n_stages=args.n_model,
+        data_size=args.n_data, max_seq=max_seq, cache_dtype=dtype,
+        prefill_chunks=args.prefill_chunks, paged=args.paged,
+        block_size=args.block_size, n_blocks=n_blocks,
+        host_blocks=args.host_blocks if args.paged else 0)
+    spec_pairs = None
+    if args.spec_draft:
+        dcfg = get_config(args.spec_draft)
+        if args.smoke:
+            dcfg = dcfg.reduced()
+        # drafter rows ride the same stacked parameters (leading K axis),
+        # so the drafter arch must share the target's parameter skeleton
+        if (dcfg.vocab_size != cfg.vocab_size
+                or skeleton(dcfg, eng) != skeleton(cfg, eng)):
+            raise SystemExit(
+                f"--spec-draft {args.spec_draft}: drafter parameter skeleton "
+                f"(or vocab) differs from {args.arch} — the trial axis "
+                f"stacks rows of one shape; pick an arch variant with an "
+                f"identical skeleton")
+        # drafter rows follow the target rows: target k drafts on row K + k
+        spec_pairs = {k: args.arches + k for k in range(args.arches)}
+        eng = dataclasses.replace(eng, n_trials=2 * args.arches)
     opts = ModelOptions(compute_dtype=dtype,
                         use_mamba_kernel=cfg.family == "ssm",
                         use_paged_kernel=args.paged_kernel)
     requests = poisson_trace(
         args.n_requests, args.rate, cfg.vocab_size,
         prompt_lens=(max(args.prompt_len // 2, 1), args.prompt_len),
-        gen_lens=(max(args.gen_len // 2, 1), args.gen_len), seed=args.seed)
+        gen_lens=(max(args.gen_len // 2, 1), args.gen_len), seed=args.seed,
+        n_arches=args.arches, arch_weights=weights)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = pl.init_trial_params(cfg, eng, plan_stages(cfg, eng.n_stages),
                                   gen, dtype=dtype, device=device)
-    engine = ServeEngine(cfg, eng, params, opts, policy=args.policy,
-                         device=device)
+    engine = ServeEngine(cfg, eng, params, opts, overcommit=args.overcommit,
+                         policy=args.policy, prefix_cache=args.prefix_cache,
+                         spill=not args.no_spill, fused=args.fused_admission,
+                         spec_gamma=args.spec_gamma if args.spec_draft
+                         else 0, spec_pairs=spec_pairs, device=device)
     pa.launches = ms.launches = 0
     completions = engine.run(requests)
     s = engine.stats.summary()
     mode = ("continuous/" + ("paged" if args.paged else "dense")
             + ("+kernel" if args.paged_kernel else ""))
-    lines = report.render_completions(completions)
+    if args.fused_admission:
+        mode += "+fused"
+    if args.spec_draft:
+        mode += f"+spec(gamma={args.spec_gamma})"
+    if args.prefix_cache:
+        mode += "+prefix-cache"
+    if args.arches > 1:
+        mode += f" x{args.arches}-arch gang"
+    lines = report.render_completions(completions,
+                                      multi_arch=args.arches > 1)
     lines += report.render_summary(mode, len(completions), s,
                                    policy=args.policy)
     if args.paged:
-        lines += report.render_paged(s, eng.n_blocks, eng.block_size, 0,
-                                     1.0)
+        lines += report.render_paged(s, eng.n_blocks, eng.block_size,
+                                     eng.host_blocks, args.overcommit)
+    if args.spec_draft:
+        lines += report.render_spec(s, engine.spec_stats.summary())
+    if args.prefix_cache:
+        lines += report.render_prefix(s)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     lines.append(f"device {name}: {pa.launches} paged-attention kernel "

@@ -90,25 +90,34 @@ def paged_kv_update(cache, k, v, block_tables, kv_offset, write_mask=None):
 # ---------------------------------------------------------------------------
 
 
-def _dense_write(cache, k, v, start, write_mask=None):
+def _dense_write(cache, k, v, start, write_mask=None, q_lens=None):
     """Write (b, s) K/V into dense (b, S_max, ...) strips at per-row start
     offsets, in place (the reference's vmapped dynamic_update_slice, whose
     start clamps so the chunk stays inside the strip). Rows whose
-    ``write_mask`` entry is False are left as they were."""
+    ``write_mask`` entry is False are left as they were. With ``q_lens``
+    (a ragged wave) only each row's first ``q_lens`` tokens are written,
+    at their own positions, and targets past the strip are dropped (no
+    clamp: a clamped start would shift a row's padded write back over its
+    history)."""
     s, s_cache = k.shape[1], cache["k"].shape[1]
     rows = (range(k.shape[0]) if write_mask is None
             else write_mask.nonzero().flatten().tolist())
     starts = start.tolist()
+    ql = None if q_lens is None else q_lens.tolist()
     for r in rows:
-        o = min(max(int(starts[r]), 0), s_cache - s)
-        cache["k"][r, o:o + s] = k[r].to(cache["k"].dtype)
-        cache["v"][r, o:o + s] = v[r].to(cache["v"].dtype)
+        if ql is None:
+            o, n = min(max(int(starts[r]), 0), s_cache - s), s
+        else:
+            o = int(starts[r])
+            n = max(min(int(ql[r]), s, s_cache - o), 0)
+        cache["k"][r, o:o + n] = k[r, :n].to(cache["k"].dtype)
+        cache["v"][r, o:o + n] = v[r, :n].to(cache["v"].dtype)
 
 
 def attn_apply(cfg: ArchConfig, opts: ModelOptions, p, x, *, pos,
                cache=None, kv_offset=None, mode: str = "train",
                window: int = 0, causal: bool = True, block_tables=None,
-               write_mask=None):
+               write_mask=None, q_lens=None):
     """x (b, s, d) -> (b, s, d); dense cache {'k','v'}: (b, S_max, h_kv, hd).
 
     ``block_tables`` switches append/decode to the paged pool layout (cache
@@ -118,8 +127,14 @@ def attn_apply(cfg: ArchConfig, opts: ModelOptions, p, x, *, pos,
     ``opts.use_paged_kernel`` attention reads the pool straight through the
     tables (``kernels.ops.paged_attention``); otherwise each row's logical
     view is gathered first. Returns (out, cache) — caches are updated in
-    place. (The reference's ragged ``q_lens`` waves wait for fused
-    admission.)
+    place.
+
+    ``q_lens (b,)`` gives append the ragged-wave semantics of mixed and
+    verify calls: each row's real query count (chunk width for a
+    prefilling row, 1 for a decoding row, 0 for an idle one). Only each
+    row's first ``q_lens`` tokens are written, ``kv_len`` is
+    ``kv_offset + q_lens``, and the padded positions' outputs are the
+    caller's to discard.
     """
     b, s, d = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -142,18 +157,26 @@ def attn_apply(cfg: ArchConfig, opts: ModelOptions, p, x, *, pos,
         out = L.attention(q, k, v, causal=causal, window=window, opts=opts)
     elif mode in ("append", "decode") and block_tables is not None:
         cap = block_tables.shape[1] * cache["k"].shape[1]
-        kv_len = torch.clamp(kv_offset + s, max=cap)
+        kv_len = torch.clamp(kv_offset + (s if q_lens is None else q_lens),
+                             max=cap)
+        wm = write_mask
+        if q_lens is not None:
+            # ragged wave: only each row's first q_lens tokens are real
+            wm = torch.arange(s, device=x.device)[None, :] < q_lens[:, None]
+            if write_mask is not None:
+                wm = wm & (write_mask if write_mask.ndim == 2
+                           else write_mask[:, None])
         if opts.use_paged_kernel:
             # scatter only — the kernel attends straight from the pool
             # through the tables, never building the gathered view (at sq=1
             # its causal mask equals the gather path's kv_len-only mask)
-            paged_kv_scatter(cache, k, v, block_tables, kv_offset, write_mask)
+            paged_kv_scatter(cache, k, v, block_tables, kv_offset, wm)
             out = kernel_ops.paged_attention(
                 q, cache["k"], cache["v"], block_tables, kv_offset, kv_len,
-                causal=True, window=window)
+                causal=True, window=window, q_lens=q_lens)
         else:
             _, kf, vf = paged_kv_update(cache, k, v, block_tables, kv_offset,
-                                        write_mask)
+                                        wm)
             if mode == "append" or window > 0:
                 out = L.attention(q, kf.to(q.dtype), vf.to(q.dtype),
                                   causal=True, window=window,
@@ -166,8 +189,9 @@ def attn_apply(cfg: ArchConfig, opts: ModelOptions, p, x, *, pos,
     elif mode == "append":
         # chunked prefill into dense strips at per-row depths kv_offset
         s_cache = cache["k"].shape[1]
-        _dense_write(cache, k, v, kv_offset, write_mask)
-        kv_len = torch.clamp(kv_offset + s, max=s_cache)
+        _dense_write(cache, k, v, kv_offset, write_mask, q_lens)
+        kv_len = torch.clamp(kv_offset + (s if q_lens is None else q_lens),
+                             max=s_cache)
         out = L.attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                           causal=True, window=window, kv_offset=kv_offset,
                           kv_len=kv_len, opts=opts)
@@ -195,11 +219,12 @@ def attn_apply(cfg: ArchConfig, opts: ModelOptions, p, x, *, pos,
 
 def dense_block(cfg, opts, p, x, *, pos, cache=None, kv_offset=None,
                 mode="train", window: int = 0, block_tables=None,
-                write_mask=None):
+                write_mask=None, q_lens=None):
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     a, cache = attn_apply(cfg, opts, p["attn"], h, pos=pos, cache=cache,
                           kv_offset=kv_offset, mode=mode, window=window,
-                          block_tables=block_tables, write_mask=write_mask)
+                          block_tables=block_tables, write_mask=write_mask,
+                          q_lens=q_lens)
     x = x + a
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     x = x + L.mlp_apply(p["mlp"], h, cfg.act)
@@ -218,13 +243,14 @@ def _masked_copy(dst, src, write_mask):
 
 def ssm_block(cfg, opts, p, x, *, pos, cache=None, kv_offset=None,
               mode="train", window: int = 0, block_tables=None,
-              write_mask=None):
+              write_mask=None, q_lens=None):
     """Mamba1 block (falcon-mamba): norm -> mamba -> residual. The cache
     {'ssm' (b, di, n) fp32, 'conv' (b, d_conv-1, di)} is read as the
     incoming state and overwritten in place with the new one on the rows
     ``write_mask`` allows. (``pos`` / ``kv_offset`` / ``window`` /
-    ``block_tables`` are accepted for signature uniformity: the recurrent
-    state is O(1) per row, not positional, and never paged.)"""
+    ``block_tables`` / ``q_lens`` are accepted for signature uniformity:
+    the recurrent state is O(1) per row, not positional, and never paged;
+    ragged waves are attention-family only.)"""
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
     ssm_s = cache["ssm"] if cache is not None else None
     conv_s = cache["conv"] if cache is not None else None

@@ -178,7 +178,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
 def stack_apply(cfg: ArchConfig, opts: ModelOptions, layer_params, x, *,
                 pos, mode: str = "train", cache=None, layer_mask=None,
                 kv_offset=None, window: int = 0, block_tables=None,
-                write_mask=None):
+                write_mask=None, q_lens=None):
     """Apply a contiguous slice of the layer stack.
 
     layer_params: a list of per-layer parameter dicts (views into the
@@ -186,7 +186,8 @@ def stack_apply(cfg: ArchConfig, opts: ModelOptions, layer_params, x, *,
     cache: {"layers": {"k", "v"} or {"ssm", "conv"} stacked per layer,
     "shared": None} or None; with ``block_tables`` the stacked leaves are
     per-layer block *pools*. ``write_mask`` (b,) gates which rows' cache
-    entries append / decode may write.
+    entries append / decode may write; ``q_lens`` (b,) makes append a
+    ragged wave (see ``blocks.attn_apply``).
     layer_mask: (n_local,) bools — False = padded no-op layer (skipped).
     In train mode with ``opts.remat`` each layer is a
     ``torch.utils.checkpoint`` — the reference's ``jax.checkpoint`` of the
@@ -207,7 +208,8 @@ def stack_apply(cfg: ArchConfig, opts: ModelOptions, layer_params, x, *,
         def run(x, p_i=p_i, c_i=c_i):
             return block(cfg, opts, p_i, x, pos=pos, cache=c_i,
                          kv_offset=kv_offset, mode=mode, window=window,
-                         block_tables=block_tables, write_mask=write_mask)[0]
+                         block_tables=block_tables, write_mask=write_mask,
+                         q_lens=q_lens)[0]
 
         x = (checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
              if remat and torch.is_grad_enabled() else run(x))

@@ -28,6 +28,7 @@ from repro_torch.models.layers import ModelOptions as TOpts
 from repro_torch.models.lm import params_from_numpy
 from repro_torch.serve import Request as TRequest
 from repro_torch.serve import ServeEngine as TEngine
+from repro_torch.serve import engine as tengine
 
 torch.set_num_threads(2)
 MAX_SEQ = 24
@@ -42,21 +43,46 @@ def staggered(req_cls, vocab, seed=1):
             for i, (p, g) in enumerate(SHAPES)]
 
 
-def build(data_size=1, n_blocks=24, kernel=True):
+def configs(n_trials=1, slots=2, microbatch=2, data_size=1, paged=True,
+            n_blocks=24, block_size=4, prefill_chunks=2, max_seq=MAX_SEQ):
+    """The reduced chatglm3-6b and one engine configuration, for each
+    package (fp32 pools, 2 stages)."""
     cfg_j, cfg_t = jget("chatglm3-6b").reduced(), tget("chatglm3-6b").reduced()
-    kw = dict(n_trials=1, n_microbatches=2, microbatch=2 // data_size,
-              n_stages=2, data_size=data_size, max_seq=MAX_SEQ,
-              prefill_chunks=2, paged=True, block_size=4, n_blocks=n_blocks)
-    eng_j = jpl.EngineConfig(cache_dtype=jnp.float32, **kw)
-    eng_t = tpl.EngineConfig(cache_dtype=torch.float32, **kw)
-    params = jpl.init_trial_params(cfg_j, eng_j, jplan(cfg_j, 2),
-                                   jax.random.PRNGKey(0), max_pos=MAX_SEQ)
-    jeng = JEngine(cfg_j, eng_j, make_test_mesh(data_size, 2), params,
-                   JOpts(use_paged_kernel=kernel))
-    teng = TEngine(cfg_t, eng_t,
+    kw = dict(n_trials=n_trials, n_microbatches=slots, microbatch=microbatch,
+              n_stages=2, data_size=data_size, max_seq=max_seq,
+              prefill_chunks=prefill_chunks, paged=paged,
+              block_size=block_size, n_blocks=n_blocks if paged else 0)
+    return (cfg_j, cfg_t, jpl.EngineConfig(cache_dtype=jnp.float32, **kw),
+            tpl.EngineConfig(cache_dtype=torch.float32, **kw))
+
+
+def jax_params(cfg_j, eng_j):
+    return jpl.init_trial_params(cfg_j, eng_j, jplan(cfg_j, eng_j.n_stages),
+                                 jax.random.PRNGKey(0), max_pos=MAX_SEQ)
+
+
+def jax_engine(cfg_j, eng_j, params, kernel=True, **kw):
+    """The reference engine; its paged kernel path runs the default jnp
+    lowering on the CPU."""
+    return JEngine(cfg_j, eng_j, make_test_mesh(eng_j.data_size,
+                                                eng_j.n_stages),
+                   params, JOpts(use_paged_kernel=kernel), **kw)
+
+
+def torch_engine(cfg_t, eng_t, params, kernel=True, **kw):
+    """The port's engine on the CPU over the reference's weights."""
+    return TEngine(cfg_t, eng_t,
                    params_from_numpy(jax.tree.map(np.asarray, params)),
-                   TOpts(use_paged_kernel=kernel), device="cpu")
-    return cfg_t, teng, jeng
+                   TOpts(use_paged_kernel=kernel), device="cpu", **kw)
+
+
+def build(data_size=1, n_blocks=24, kernel=True):
+    cfg_j, cfg_t, eng_j, eng_t = configs(data_size=data_size,
+                                         microbatch=2 // data_size,
+                                         n_blocks=n_blocks)
+    params = jax_params(cfg_j, eng_j)
+    return (cfg_t, torch_engine(cfg_t, eng_t, params, kernel),
+            jax_engine(cfg_j, eng_j, params, kernel))
 
 
 def _free_lists(alloc):
@@ -64,28 +90,52 @@ def _free_lists(alloc):
 
 
 def _assert_same_run(teng, jeng, tcomp, jcomp):
-    assert [c.rid for c in tcomp] == [c.rid for c in jcomp]
-    for a, b in zip(tcomp, jcomp):
-        assert a.tokens == b.tokens, f"request {a.rid}: port != reference"
-        assert a.ttft_ticks == b.ttft_ticks
-        assert a.finished_tick == b.finished_tick
-        assert a.admitted_tick == b.admitted_tick
-    assert teng.stats.calls == jeng.stats.calls
-    assert teng.stats.prefill_calls == jeng.stats.prefill_calls
-    assert teng.stats.ticks == jeng.stats.ticks
-    assert teng.stats.tokens_generated == jeng.stats.tokens_generated
-    assert list(teng.stats.block_usage_samples) == \
-        list(jeng.stats.block_usage_samples)
-    assert _free_lists(teng.allocator) == _free_lists(jeng.allocator)
+    assert_parity(teng, jeng, tcomp, jcomp)
     assert teng.allocator.all_free()
 
 
+def assert_parity(teng, jeng, tcomp, jcomp):
+    """Exact agreement of two engine runs: per-request tokens and tick
+    latencies, every ServeStats counter and schedule sample, every
+    SpecStats field, and the allocator's free lists."""
+    assert [c.rid for c in tcomp] == [c.rid for c in jcomp]
+    for a, b in zip(tcomp, jcomp):
+        assert a.tokens == b.tokens, f"request {a.rid}: port != reference"
+        assert a.ttft_ticks == b.ttft_ticks, a.rid
+        assert a.finished_tick == b.finished_tick, a.rid
+        assert a.admitted_tick == b.admitted_tick, a.rid
+    for name in COUNTERS:
+        assert getattr(teng.stats, name) == getattr(jeng.stats, name), name
+    for name in SAMPLES:
+        assert list(getattr(teng.stats, name)) == \
+            list(getattr(jeng.stats, name)), name
+    assert teng.stats.mixed_fill_ratio == jeng.stats.mixed_fill_ratio
+    assert dataclasses.asdict(teng.spec_stats) == \
+        dataclasses.asdict(jeng.spec_stats)
+    if jeng.allocator is not None:
+        assert _free_lists(teng.allocator) == _free_lists(jeng.allocator)
+
+
+COUNTERS = tengine._COUNTER_FIELDS
+SAMPLES = ("block_usage_samples", "occupancy_samples", "decode_busy_samples",
+           "mixed_fill_samples")
+
+
 def _oracle(cfg, teng, req):
-    p1 = lm.layer_slice(teng.params, 0)  # trial 0, vocab padding dropped
+    """The port's single-device greedy tokens for ``req`` against its
+    arch's trial row."""
+    p1 = lm.layer_slice(teng.params, req.arch)  # vocab padding dropped
     p1["embed"] = {"tok": p1["embed"]["tok"][:cfg.vocab_size]}
     p1["head"] = p1["head"][:, :cfg.vocab_size]
     return lm.greedy_generate(cfg, teng.opts, p1, req.prompt,
                               req.max_new_tokens, MAX_SEQ, torch.float32)
+
+
+def assert_oracle(cfg, teng, reqs, comps):
+    for r, c in zip(sorted(reqs, key=lambda r: r.rid), comps):
+        assert len(c.tokens) == r.max_new_tokens
+        assert c.tokens == _oracle(cfg, teng, r), \
+            f"request {r.rid}: port diverged from its single-device oracle"
 
 
 @pytest.mark.parametrize("data_size", [1, 2])
@@ -97,10 +147,7 @@ def test_engine_matches_reference_and_oracle(data_size):
     _assert_same_run(teng, jeng, tcomp, jcomp)
     assert teng.allocator.n_partitions == data_size
     assert tpa.launches == launches  # CPU tensors: the plain version
-    for r, c in zip(staggered(TRequest, cfg.vocab_size), tcomp):
-        assert len(c.tokens) == r.max_new_tokens
-        assert c.tokens == _oracle(cfg, teng, r), \
-            f"request {r.rid}: port diverged from its single-device oracle"
+    assert_oracle(cfg, teng, staggered(TRequest, cfg.vocab_size), tcomp)
 
 
 def test_engine_backpressure_and_gather_path_match_reference():
@@ -120,10 +167,10 @@ def test_engine_rejects_unported_features_and_missing_cuda():
                            n_blocks=4, cache_dtype=torch.float32)
     plan = tpl.plan_stages(cfg, 1)
     params = tpl.init_trial_params(cfg, eng, plan, torch.Generator())
-    for kw in (dict(prefix_cache=True), dict(overcommit=1.5),
-               dict(fused=True), dict(spec_gamma=2)):
-        with pytest.raises(NotImplementedError):
-            TEngine(cfg, eng, params, device="cpu", **kw)
+    # sliding-window serving is the one engine feature still unported
+    with pytest.raises(NotImplementedError, match="sliding-window"):
+        TEngine(cfg, dataclasses.replace(eng, window=4), params,
+                device="cpu")
     # dense strips are ported: the engine resets rows instead of paging
     dense = TEngine(cfg, dataclasses.replace(eng, paged=False), params,
                     device="cpu")
@@ -150,3 +197,24 @@ def test_launcher_smoke_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "continuous/dense: 4 requests" in out
     assert "0 selective-scan kernel launches" in out
+
+
+def test_launcher_serve_features_smoke_on_cpu(capsys):
+    """The launcher's paged serve features on the CPU: the prefix cache,
+    fused admission and overcommit over a host tier together, then a
+    2-arch gang with a drafter row per arch."""
+    common = ["--arch", "chatglm3-6b", "--smoke", "--paged", "--paged-kernel",
+              "--n-model", "2", "--slots", "2", "--n-requests", "6",
+              "--prompt-len", "12", "--gen-len", "6", "--block-size", "4",
+              "--device", "cpu"]
+    launcher.main(common + ["--prefix-cache", "--fused-admission",
+                            "--overcommit", "1.5", "--host-blocks", "8",
+                            "--n-blocks", "8"])
+    out = capsys.readouterr().out
+    assert "+fused+prefix-cache: 6 requests" in out
+    assert "fused admission:" in out and "prefix cache:" in out
+    assert "tiered store:" in out
+    launcher.main(common + ["--arches", "2", "--spec-draft", "chatglm3-6b"])
+    out = capsys.readouterr().out
+    assert "+spec(gamma=3) x2-arch gang: 6 requests" in out
+    assert "speculation:" in out and "tokens per arch" in out
