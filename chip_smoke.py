@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with a CUDA card (H100):
     python3 chip_smoke.py [--out results.json] [--phases 2,3,5]
 
 It builds the hand-written CUDA kernels from the checkout's sources (one
-nvcc per source, all started together) and runs twelve phases, each a hard
+nvcc per source, all started together) and runs thirteen phases, each a hard
 assert; it exits 0 only if every phase passed, and exits non-zero without
 a result when no CUDA device is visible. ``--phases`` runs a subset (the
 build always runs) and then prints neither the kernels line nor the last
@@ -32,7 +32,8 @@ line.
    max(bytes / 3.35 TB/s, operations / peak rate of the input type).
 3. The flash-attention kernel (K1) against its plain version at the
    training path's shape (b 1, seq 2048, 32 query heads on 2 KV heads,
-   head_dim 128, causal) and the reference sweep's edge cases (ragged sq
+   head_dim 128, causal), at phase 13's static prefill shape (b 2, seq
+   512) and the reference sweep's edge cases (ragged sq
    33 with hq = hkv, window 24, kv_offset 32 with sq 16 / sk 48) plus sq
    100 (not a multiple of the bf16 tile's 64 rows) and a head_dim 64 case
    with kv_offset 64, fp32 (tol 2e-5) and bf16 (tol 2e-2); the autograd
@@ -123,7 +124,30 @@ line.
    append): its host ops, device busy ms and idle share, K2's device ms
    per launch beside its bound, and every K2 launch of that call against
    the plain version (bf16 limit as phase 2's).
-13. A {"kernels": [...]} line for every ported kernel, the card line, and
+13. The rest of serving. (a) Exactness at full width, 2 fp32 layers:
+   static lockstep serving (K1 in every prefill call; prompts of 128 and
+   of 100 tokens, not a multiple of K1's 64-row tile) equal to the oracle
+   and to the continuous engine; windowed serving (window 24 on 40-110
+   token prompts) through dense strips, the paged pool with K2 and static
+   serving with a windowed K1, equal to the windowed oracle, the window
+   changing some request's tokens; falcon-mamba-7b static serving (K3)
+   equal to the oracle; chunked prefill (4 chunks) equal to plain prefill
+   in tokens and caches for both families; a traced run that passes the
+   span validator and holds compile events. (b) chatglm3-6b, 28 bf16
+   layers, phase 5's grid: static serving of 8 requests of 512 prompt
+   tokens and 16-32 new ones (K1's launches = prefill calls x slots x
+   layers, all on the tensor cores) beside the continuous split engine on
+   the same trace; wall, tokens/s, ms per prefill / decode call, peak
+   memory; one prefill call profiled: K1's device ms per launch beside its
+   bound, and every K1 launch of that call against the plain version
+   (bf16 tol 2e-2). (c) Phase 5's trace with window 256 through the paged
+   engine (K2), every launch windowed; the trace's longest prompt alone
+   profiled, every K2 launch of its first append and decode calls against
+   the plain version. (d) ``plan_serve_capacity`` on this card's 80 GB
+   for the same model (bf16, paged, expected length 600, at most 8
+   slots): the planned grid serves a few requests, and its peak memory
+   stands beside the plan's estimate.
+14. A {"kernels": [...]} line for every ported kernel, the card line, and
    the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 from __future__ import annotations
@@ -357,15 +381,21 @@ def phase2(pa, dev, flush, card):
 # Phase 3: the flash-attention kernel vs its plain version
 # ---------------------------------------------------------------------------
 
-# name, b, sq, sk, hq, hkv, hd, causal, window, kv_offset
+# name, b, sq, sk, hq, hkv, hd, causal, window, kv_offset; the first two
+# are timed: the training path's shape and phase 13's static prefill (b 2
+# rows a slot, 512-token prompts)
 FLASH_CASES = [
     ("train2048", 1, 2048, 2048, HQ, HKV, HD, True, 0, 0),
+    ("serve_prefill512", 2, 512, 512, HQ, HKV, HD, True, 0, 0),
     ("ragged_sq33_mha", 2, 33, 33, 4, 4, 32, True, 0, 0),
     ("window24", 1, 128, 128, 8, 2, 16, True, 24, 0),
     ("offset32", 1, 16, 48, 4, 1, 16, True, 0, 32),
     ("ragged_sq100", 1, 100, 100, HQ, HKV, HD, True, 0, 0),
     ("offset64_hd64", 2, 72, 136, 8, 2, 64, True, 0, 64),
 ]
+
+
+FLASH_TIMED = ("train2048", "serve_prefill512")
 
 
 def flash_pairs(sq, sk, causal, window, off):
@@ -377,6 +407,22 @@ def flash_pairs(sq, sk, causal, window, off):
         lo = max(0, qpos - window + 1) if window else 0
         pairs += max(0, hi - lo)
     return pairs
+
+
+def flash_work(q, k, v, causal=True, window=0, kv_offset=0):
+    """(bytes, operations, attended pairs) one K1 launch must move and do:
+    each input read once and the output written once; QK^T and PV over the
+    pairs its masks keep, 2 operations per multiply-add."""
+    b, sq, hq, hd = q.shape
+    pairs = flash_pairs(sq, k.shape[1], causal, window, kv_offset)
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    return nbytes, 4 * hd * hq * b * pairs, pairs
+
+
+def flash_bound_s(q, k, v, **kw) -> float:
+    """The least time one K1 launch could take on this card (s)."""
+    nbytes, ops, _ = flash_work(q, k, v, **kw)
+    return max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[q.dtype])
 
 
 def phase3(fa, ops, dev, flush, card):
@@ -400,11 +446,8 @@ def phase3(fa, ops, dev, flush, card):
                        b=b, sq=sq, sk=sk, hq=hq, hkv=hkv, hd=hd,
                        window=window, kv_offset=off, max_abs_err=err,
                        tol=FLASH_TOL[dt])
-            if name == "train2048":
-                es = q.element_size()
-                pairs = flash_pairs(sq, sk, causal, window, off)
-                nbytes = es * (2 * q.numel() + k.numel() + v.numel())
-                ops_n = 4 * hd * hq * b * pairs  # QK^T and PV, 2 per MAC
+            if name in FLASH_TIMED:
+                nbytes, ops_n, pairs = flash_work(q, k, v, **kw)
                 t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_n / PEAK_OPS[dt]
                 qt, kt, vt = (x.transpose(1, 2).contiguous()
                               for x in (q, k, v))
@@ -1899,7 +1942,496 @@ def phase12(pa, dev, card):
     return out, launches
 
 
-PHASES = tuple(range(1, 13))
+# ---------------------------------------------------------------------------
+# Phase 13: the rest of serving — static lockstep serving (K1 in every
+# prefill), sliding windows (K2), chunked prefill, traces, capacity plans
+# ---------------------------------------------------------------------------
+
+
+def timed_steps(pl, times):
+    """Patch ``pl.make_serve_step`` so every step built from now on (as
+    ``static_serve`` builds its own) adds each call's synchronized
+    host-clock seconds to ``times[mode]``; returns the function that
+    undoes the patch."""
+    real = pl.make_serve_step
+
+    def make(cfg, opts, eng, mode, tracer=None):
+        step = real(cfg, opts, eng, mode, tracer=tracer)
+
+        def run(params, cache, batch):
+            t = time.perf_counter()
+            out = step(params, cache, batch)
+            torch.cuda.synchronize()
+            times.setdefault(mode, []).append(time.perf_counter() - t)
+            return out
+        return run
+
+    pl.make_serve_step = make
+    return lambda: setattr(pl, "make_serve_step", real)
+
+
+def k1_call_vs_plain(fa, fn):
+    """Run ``fn()`` (one serving call) under the profiler with every K1
+    launch recorded; returns (its result, host ops, record): K1's
+    launches, device ms per launch beside its bound, the call's device
+    busy ms, and each launch's output held against
+    ``flash_attention_plain`` on its inputs (asserted within K1's
+    tolerance for the input type)."""
+    real, launches = fa.flash_attention_kernel, []
+
+    def launch(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        launches.append((q, k, v, kw, out))
+        return out
+
+    fa.flash_attention_kernel = launch
+    try:
+        res, host, dev = profile_call(fn)
+    finally:
+        fa.flash_attention_kernel = real
+    assert launches, "the call launched no K1"
+    k1 = [e.time_range.elapsed_us() for e in dev
+          if any(k in e.name for k in K1_KERNELS)]
+    errs = []
+    for q, k, v, kw, out in launches:
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        err = float((out.float() - want.float()).abs().max())
+        assert bool(torch.isfinite(out).all()) \
+            and err < FLASH_TOL[q.dtype], (err, kw)
+        errs.append(err)
+    q, k, _, kw, _ = launches[0]
+    return res, host, dict(
+        launches=len(launches), q_shape=list(q.shape), kv_shape=list(k.shape),
+        window=kw.get("window", 0), dtype=str(q.dtype).split(".")[-1],
+        ms_per_launch=sum(k1) / 1e3 / len(launches) if k1 else None,
+        bound_ms_per_launch=1e3 * float(np.mean(
+            [flash_bound_s(a, b, c, **w) for a, b, c, w, _ in launches])),
+        max_abs_err=max(errs), tol=FLASH_TOL[q.dtype],
+        device_busy_ms=(sum(e.time_range.elapsed_us() for e in dev) / 1e3
+                        if dev else None))
+
+
+def phase13_exact(fa, pa, ms, dev):
+    """(a) Exactness at full width, 2 fp32 layers, 2 stages, 2 slots x
+    microbatch 2: every greedy token of static serving (K1 in each
+    prefill; one group of 128-token prompts, one of 100, not a multiple of
+    K1's 64-row tile) equals the oracle's and the continuous engine's; of
+    windowed serving (window 24 on 40-110-token prompts: dense strips, the
+    paged pool through K2, and static with a windowed K1) the windowed
+    oracle's, and the window changes some request's tokens; of
+    falcon-mamba-7b static serving (K3) the oracle's (chunked scan);
+    chunked prefill (4 chunks, the chunk slots of a group sharing one
+    cache) equals plain prefill in tokens and caches, for both families;
+    a traced windowed run passes the span validator and holds compile
+    events."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.partitioner import plan_stages
+    from repro_torch.models import lm
+    from repro_torch.models.layers import ModelOptions
+    from repro_torch.obs import Tracer, validate_spans
+    from repro_torch.serve import Request, ServeEngine, blocks_for, \
+        static_serve
+    from repro_torch.tree import tree_leaves
+
+    f32, window, max_seq = torch.float32, 24, 136
+    cfg = dataclasses.replace(get_config("chatglm3-6b"), n_layers=2)
+    scfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=2)
+    base = pl.EngineConfig(n_trials=1, n_microbatches=2, microbatch=2,
+                           n_stages=2, max_seq=max_seq, cache_dtype=f32,
+                           prefill_chunks=2)
+    paged = dataclasses.replace(base, paged=True, block_size=BS,
+                                n_blocks=4 * blocks_for(max_seq, BS))
+    gen = torch.Generator(device=dev).manual_seed(13)
+    params = pl.init_trial_params(cfg, base, plan_stages(cfg, 2), gen,
+                                  dtype=f32, device=dev)
+    sparams = pl.init_trial_params(scfg, base, plan_stages(scfg, 2), gen,
+                                   dtype=f32, device=dev)
+    plain, flash = ModelOptions(), ModelOptions(use_flash_kernel=True)
+    kernel = ModelOptions(use_paged_kernel=True)
+    mamba = ModelOptions(use_mamba_kernel=True)
+    rng = np.random.default_rng(13)
+    memo, runs = {}, {}
+
+    def oracle(r, window=0, c=cfg, p=params):
+        key = (c.name, r.prompt.tobytes(), r.max_new_tokens, window)
+        if key not in memo:  # plain attention and the chunked scan
+            memo[key] = lm.greedy_generate(c, plain, lm.layer_slice(p, 0),
+                                           r.prompt, r.max_new_tokens,
+                                           max_seq, f32, window=window)
+        return memo[key]
+
+    def check(name, reqs, comps, **kw):
+        mism = 0
+        for r, comp in zip(sorted(reqs, key=lambda r: r.rid), comps):
+            assert len(comp.tokens) == r.max_new_tokens, (name, r.rid)
+            mism += sum(a != b for a, b in zip(comp.tokens, oracle(r, **kw)))
+        runs[name] = dict(requests=len(comps), mismatches=mism)
+        assert mism == 0, f"{name}: {mism} tokens differ from the oracle"
+
+    # static serving: two groups of four uniform prompts
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size,
+                                    (128 if i < 4 else 100,))
+                    .astype(np.int32), int(g))
+            for i, g in enumerate(rng.integers(3, 9, 8))]
+    reset_counts(fa)
+    comps, st = static_serve(cfg, base, params, reqs, flash, device=dev)
+    check("static_k1", reqs, comps)
+    assert fa.launches == 2 * base.n_slots * cfg.n_layers, fa.launches
+    runs["static_k1"].update(calls=st.calls, k1_launches=fa.launches)
+    cont = ServeEngine(cfg, base, params, plain, device=dev).run(
+        [r.clone() for r in reqs])
+    assert [c.tokens for c in cont] == [c.tokens for c in comps], \
+        "the continuous engine's tokens differ from static serving's"
+    # sliding windows
+    wreqs = [Request(i, rng.integers(0, cfg.vocab_size, (int(p),))
+                     .astype(np.int32), 6, arrival=0.5 * i)
+             for i, p in enumerate(rng.integers(40, 111, 7))]
+    for name, eng, opts in (("window_dense", base, plain),
+                            ("window_paged_k2", paged, kernel)):
+        reset_counts(pa)
+        engine = ServeEngine(cfg, dataclasses.replace(eng, window=window),
+                             params, opts, device=dev)
+        check(name, wreqs, engine.run([r.clone() for r in wreqs]),
+              window=window)
+        runs[name]["k2_launches"] = pa.launches
+    assert runs["window_paged_k2"]["k2_launches"] > 0
+    bites = sum(oracle(r, window) != oracle(r) for r in wreqs)
+    assert bites > 0, "the window never changed a request's tokens"
+    runs["window_changes_requests"] = bites
+    sreqs = [Request(i, rng.integers(0, cfg.vocab_size, (100,))
+                     .astype(np.int32), 5) for i in range(4)]
+    reset_counts(fa)
+    comps, _ = static_serve(cfg, dataclasses.replace(base, window=window),
+                            params, sreqs, flash, device=dev)
+    check("window_static_k1", sreqs, comps, window=window)
+    runs["window_static_k1"]["k1_launches"] = fa.launches
+    # falcon-mamba-7b static serving: K3 scans each prompt once
+    mreqs = [Request(i, rng.integers(0, scfg.vocab_size, (100,))
+                     .astype(np.int32), int(g))
+             for i, g in enumerate(rng.integers(3, 7, 4))]
+    reset_counts(ms)
+    comps, _ = static_serve(scfg, base, sparams, mreqs, mamba, device=dev)
+    check("ssm_static_k3", mreqs, comps, c=scfg, p=sparams)
+    assert ms.launches == base.n_slots * scfg.n_layers, ms.launches
+    runs["ssm_static_k3"]["k3_launches"] = ms.launches
+
+    # chunked prefill: 2 request groups of 128 tokens in 4 chunks each
+    def prefill(c, p, opts, eng, toks):
+        cache = pl.serve_cache_struct(c, eng, device=dev)
+        step = pl.make_serve_step(c, opts, eng, "prefill")
+        cache, tok, _ = step(p, cache,
+                             {"tokens": torch.from_numpy(toks).to(dev)})
+        return tree_leaves(cache["layers"]), tok.cpu().numpy()
+
+    seq, nc = 128, 4
+    eng_p = dataclasses.replace(base, max_seq=seq, prefill_chunks=1)
+    eng_c = dataclasses.replace(eng_p, n_microbatches=2 * nc,
+                                prefill_chunks=nc)
+    for name, c, p, opts in (("chunked_prefill_attention", cfg, params,
+                              flash),
+                             ("chunked_prefill_ssm", scfg, sparams, mamba)):
+        toks = rng.integers(0, c.vocab_size, (1, 2, 2, seq)).astype(np.int32)
+        chunks = np.ascontiguousarray(
+            toks.reshape(1, 2, 2, nc, seq // nc).transpose(0, 1, 3, 2, 4)
+            .reshape(1, 2 * nc, 2, seq // nc))
+        cache_p, tok_p = prefill(c, p, opts, eng_p, toks)
+        cache_c, tok_c = prefill(c, p, opts, eng_c, chunks)
+        cache_r, tok_r = prefill(c, p, plain, eng_p, toks)  # no kernel
+        mism = int((tok_p != tok_c.reshape(1, 2, nc, 2)[:, :, -1]).sum())
+        mism += int((tok_p != tok_r).sum())
+        diff = lambda xs, ys: max(float((x.float() - y.float()).abs().max())
+                                  for x, y in zip(xs, ys))
+        runs[name] = dict(mismatches=mism,
+                          chunked_cache_max_abs_diff=diff(cache_p, cache_c),
+                          plain_cache_max_abs_diff=diff(cache_p, cache_r))
+        assert mism == 0 and runs[name]["chunked_cache_max_abs_diff"] < 5e-4 \
+            and runs[name]["plain_cache_max_abs_diff"] < 5e-4, runs[name]
+    # a traced windowed paged run
+    tr = Tracer()
+    engine = ServeEngine(cfg, dataclasses.replace(paged, window=window),
+                         params, kernel, tracer=tr, device=dev)
+    engine.run([r.clone() for r in wreqs])
+    rep = validate_spans(tr.events)
+    compiles = sorted({(e["mode"], e["qlen"], e["table_width"])
+                       for e in tr.events if e["ev"] == "compile"})
+    assert rep["completed"] == len(wreqs) and compiles, rep
+    runs["traced"] = dict(rep, events=len(tr.events),
+                          compile_signatures=compiles)
+    return runs
+
+
+def phase13(fa, pa, ms, dev, card):
+    """The rest of serving: (a) :func:`phase13_exact`; (b) full-width bf16
+    chatglm3-6b, all 28 layers, phase 5's grid, static serving of 8
+    requests of 512 prompt tokens (K1 in each prefill call) beside the
+    continuous split engine on the same trace, and every K1 launch of one
+    profiled prefill call held to the plain version; (c) phase 5's trace
+    through the paged engine with window 256 (K2), every K2 launch of one
+    profiled append and one decode call held to the plain version; (d) the
+    capacity planner's grid for the same model on this card, run with a
+    few requests, its peak memory beside the plan's estimate."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core import scheduler as sched
+    from repro_torch.core.partitioner import plan_stages
+    from repro_torch.models.layers import ModelOptions
+    from repro_torch.serve import Request, ServeEngine, blocks_for, \
+        static_serve
+
+    out = dict(card=card)
+    marks, t_mark = {}, [time.perf_counter()]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        marks[name] = now - t_mark[0]
+        t_mark[0] = now
+
+    out["a"] = phase13_exact(fa, pa, ms, dev)
+    say("phase 13 (a): full-width 2-layer fp32 static / windowed / chunked "
+        "serving vs the oracle:", json.dumps(out["a"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("a_exactness")
+
+    cfg = get_config("chatglm3-6b")
+    bf16 = torch.bfloat16
+    variant_of = lambda sq: pa.pick_variant(bf16, sq, cfg.head_dim)
+    eng5 = pl.EngineConfig(n_trials=1, n_microbatches=2, microbatch=2,
+                           n_stages=2, max_seq=1024 + 32, cache_dtype=bf16,
+                           prefill_chunks=2, paged=True, block_size=BS,
+                           n_blocks=4 * blocks_for(1024 + 32, BS))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = pl.init_trial_params(cfg, eng5, plan_stages(cfg, 2), gen,
+                                  dtype=bf16, device=dev)
+    k2_opts = ModelOptions(compute_dtype=bf16, use_paged_kernel=True)
+    flash = ModelOptions(compute_dtype=bf16, use_flash_kernel=True)
+    rng = np.random.default_rng(13)
+    mark("b_init")
+
+    # (b) static serving: 8 requests of 512 prompt tokens, two groups
+    plen = 512
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, (plen,))
+                    .astype(np.int32), int(g), arrival=float(i))
+            for i, g in enumerate(rng.integers(16, 33, 8))]
+    max_seq = plen + 32
+    static_eng = dataclasses.replace(eng5, max_seq=max_seq, paged=False,
+                                     n_blocks=0, prefill_chunks=1)
+    times = {}
+    restore = timed_steps(pl, times)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)
+    try:
+        t = time.perf_counter()
+        comps_s, st_s = static_serve(cfg, static_eng, params, reqs, flash,
+                                     device=dev)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    finally:
+        restore()
+    k1_launches = fa.launches
+    k1_variants = dict(fa.variant_launches)
+    want = len(times["prefill"]) * static_eng.n_slots * cfg.n_layers
+    assert k1_launches == want == k1_variants["mma_bf16"] > 0, \
+        (k1_launches, want, k1_variants)
+    for r, c in zip(reqs, comps_s):
+        assert len(c.tokens) == r.max_new_tokens, (r.rid, len(c.tokens))
+    static_rec = dict(
+        wall_s=wall_s, generated_tok_per_s=st_s.tokens_generated / wall_s,
+        calls=st_s.calls, prefill_calls=len(times["prefill"]),
+        decode_calls=len(times["decode"]),
+        prefill_ms_per_call=1e3 * float(np.median(times["prefill"])),
+        decode_ms_per_call=1e3 * float(np.median(times["decode"])),
+        slot_occupancy=st_s.slot_occupancy,
+        decode_occupancy=st_s.decode_occupancy,
+        tokens_generated=st_s.tokens_generated, k1_launches=k1_launches,
+        k1_variant_launches=k1_variants,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    mark("b_static")
+    # the continuous split engine (paged, K2) on the same trace
+    split_eng = dataclasses.replace(eng5, max_seq=max_seq,
+                                    n_blocks=4 * blocks_for(max_seq, BS))
+    engine = ServeEngine(cfg, split_eng, params, k2_opts, device=dev)
+    probe = StepProbe(pa, engine, {"append_step": "append",
+                                   "decode_step": "decode"}, variant_of)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(pa)
+    t = time.perf_counter()
+    comps_c = engine.run([r.clone() for r in reqs])
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t
+    split_launches = pa.launches
+    assert split_launches == engine.stats.calls * split_eng.n_slots \
+        * cfg.n_layers > 0, split_launches
+    split_rec = dict(
+        wall_s=wall_c,
+        generated_tok_per_s=engine.stats.tokens_generated / wall_c,
+        calls=engine.stats.calls, ticks=engine.stats.ticks,
+        ms_per_call={k: 1e3 * float(np.median(v))
+                     for k, v in probe.times.items()},
+        calls_by_label={k: len(v) for k, v in probe.times.items()},
+        slot_occupancy=engine.stats.slot_occupancy,
+        decode_occupancy=engine.stats.decode_occupancy,
+        k2_launches=split_launches,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        tokens_equal_share_vs_static=float(np.mean(
+            [a.tokens == b.tokens for a, b in zip(comps_c, comps_s)])))
+    del engine, probe
+    gc.collect()
+    # bf16 departures of the split engine from static serving: the fp32
+    # logit gap beside the bf16 forward's own error (no gate)
+    split_rec["near_ties_vs_static"] = near_ties(cfg, params, dev, reqs,
+                                                 comps_c, comps_s)
+    gc.collect()
+    mark("b_split")
+    # one prefill call (the first group) profiled; every K1 launch of it
+    # against the plain version
+    step = pl.make_serve_step(cfg, flash, static_eng, "prefill")
+    tokens = np.stack([r.prompt for r in reqs[:4]]).reshape(1, 2, 2, plen)
+    cache = pl.serve_cache_struct(cfg, static_eng, device=dev)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    (_, tok, _), host, k1_rec = k1_call_vs_plain(
+        fa, lambda: step(params, cache, batch))
+    assert tok.cpu().numpy().reshape(-1).tolist() == \
+        [c.tokens[0] for c in comps_s[:4]], "profiled prefill's tokens"
+    assert k1_rec["launches"] == static_eng.n_slots * cfg.n_layers
+    k1_rec.update(host_ops=host,
+                  prefill_ms_per_call=static_rec["prefill_ms_per_call"])
+    if k1_rec["device_busy_ms"] is not None:
+        k1_rec["idle_share"] = 1.0 - (k1_rec["device_busy_ms"]
+                                      / k1_rec["prefill_ms_per_call"])
+        k1_rec["k1_share_of_busy"] = (k1_rec["ms_per_launch"]
+                                      * k1_rec["launches"]
+                                      / k1_rec["device_busy_ms"])
+    del cache, batch
+    out["b"] = dict(static=static_rec, split=split_rec, k1_prefill=k1_rec,
+                    layers=cfg.n_layers, dtype="bfloat16", stages=2,
+                    slots=2, microbatch=2, prompt_len=plen,
+                    requests=len(reqs))
+    say("phase 13 (b): full chatglm3-6b bf16 static serving (K1 prefill) "
+        "beside the continuous split engine:", json.dumps(out["b"]))
+    mark("b_profile")
+
+    # (c) sliding window 256 on phase 5's trace, paged, K2
+    rng5 = np.random.default_rng(4)
+    reqs5 = [Request(i, rng5.integers(0, cfg.vocab_size, (int(p),))
+                     .astype(np.int32), 32, arrival=float(i))
+             for i, p in enumerate(rng5.integers(128, 1025, 8))]
+    win_eng = dataclasses.replace(eng5, window=256)
+    labels = {"append_step": "append", "decode_step": "decode"}
+    engine = ServeEngine(cfg, win_eng, params, k2_opts, device=dev)
+    probe = StepProbe(pa, engine, labels, variant_of)
+    real, windows = pa.paged_attention_kernel, set()
+
+    def seen(*args, **kw):
+        windows.add(kw.get("window"))
+        return real(*args, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(pa)
+    pa.paged_attention_kernel = seen
+    try:
+        t = time.perf_counter()
+        comps_w = engine.run([r.clone() for r in reqs5])
+        torch.cuda.synchronize()
+        wall_w = time.perf_counter() - t
+    finally:
+        pa.paged_attention_kernel = real
+    win_launches = pa.launches
+    st = engine.stats
+    for r, c in zip(reqs5, comps_w):
+        assert len(c.tokens) == r.max_new_tokens, (r.rid, len(c.tokens))
+    assert windows == {256}, windows
+    assert win_launches == st.calls * win_eng.n_slots * cfg.n_layers > 0
+    assert dict(pa.variant_launches) == \
+        {v: probe.expected.get(v, 0) for v in pa.variant_launches}
+    win_rec = dict(
+        window=256, wall_s=wall_w,
+        generated_tok_per_s=st.tokens_generated / wall_w, calls=st.calls,
+        ticks=st.ticks, k2_launches=win_launches,
+        variant_launches=dict(pa.variant_launches),
+        ms_per_call={k: 1e3 * float(np.median(v))
+                     for k, v in probe.times.items()},
+        calls_by_label={k: len(v) for k, v in probe.times.items()},
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del engine, probe
+    gc.collect()
+    mark("c_windowed")
+    # the trace's longest prompt alone, 3 new tokens: its first append
+    # chunk (longer than the window), second chunk (the window starts in
+    # the history) and first decode call profiled, every K2 launch of the
+    # profiled calls against the plain version
+    longest = max(reqs5, key=lambda r: r.prompt_len)
+    probe = StepProbe(pa, ServeEngine(cfg, win_eng, params, k2_opts,
+                                      device=dev), labels, variant_of,
+                      profile=True)
+    probe.engine.run([Request(longest.rid, longest.prompt, 3)])
+    torch.cuda.synchronize()
+    for lab, c in probe.calls.items():
+        ms_call = win_rec["ms_per_call"].get(lab)
+        c.update(median_call_ms=ms_call, idle_share=(
+            None if c["device_busy_ms"] is None or not ms_call
+            else 1.0 - c["device_busy_ms"] / ms_call))
+    win_rec.update(profiled_prompt_len=longest.prompt_len, k2=probe.k2,
+                   profiled_calls=probe.calls)
+    out["c"] = win_rec
+    say("phase 13 (c): full chatglm3-6b bf16 windowed paged serving (K2, "
+        "window 256):", json.dumps(out["c"]))
+    del probe
+    gc.collect()
+    mark("c_profile")
+
+    # (d) the capacity planner's grid on this card
+    base = dataclasses.replace(eng5, paged=False, n_blocks=0,
+                               n_microbatches=1)
+    planned = sched.plan_serve_capacity(cfg, base, eng5.max_seq, paged=True,
+                                        expected_seq=600, block_size=BS,
+                                        max_slots=8)
+    est = sched.per_chip_bytes(cfg, dataclasses.replace(planned, n_trials=1),
+                               eng5.max_seq, train=False, param_bytes=2)
+    estimate = est.total * planned.n_stages  # every stage on the card
+    preqs = [Request(r.rid, r.prompt, 8, arrival=0.0) for r in reqs5]
+    engine = ServeEngine(cfg, planned, params, k2_opts, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(pa)
+    t = time.perf_counter()
+    comps_p = engine.run([r.clone() for r in preqs])
+    torch.cuda.synchronize()
+    wall_p = time.perf_counter() - t
+    plan_launches = pa.launches
+    assert len(comps_p) == len(preqs) and engine.allocator.all_free()
+    assert plan_launches == engine.stats.calls * planned.n_slots \
+        * cfg.n_layers > 0
+    peak = torch.cuda.max_memory_allocated()
+    out["d"] = dict(
+        planned=dict(n_microbatches=planned.n_microbatches,
+                     microbatch=planned.microbatch,
+                     n_blocks=planned.n_blocks,
+                     block_size=planned.block_size,
+                     max_seq=planned.max_seq, n_stages=planned.n_stages),
+        hbm_bytes=sched.HBM_BYTES_PER_CHIP,
+        budget_fraction=sched.HBM_BUDGET_FRACTION,
+        estimate_gb=estimate / 1e9, estimate_parts_gb_per_stage=dict(
+            params=est.params_bytes / 1e9, act=est.act_bytes / 1e9,
+            cache=est.cache_bytes / 1e9),
+        max_memory_allocated_gb=peak / 1e9, requests=len(preqs),
+        calls=engine.stats.calls, wall_s=wall_p,
+        peak_live=engine.stats.peak_live, k2_launches=plan_launches)
+    say("phase 13 (d): planned grid for chatglm3-6b bf16:",
+        json.dumps(out["d"]))
+    del engine, params
+    mark("d_plan")
+    out["seconds"] = marks
+    launches = dict(k1_static_prefill=k1_launches,
+                    k2_windowed=win_launches, k2_split=split_launches,
+                    k2_planned=plan_launches)
+    return out, launches
+
+
+PHASES = tuple(range(1, 14))
 
 
 def write_json(path: str, res: dict) -> None:
@@ -1999,6 +2531,9 @@ def main(argv=None) -> int:
         tidy()
     if 12 in run:
         res["phase12"], pa_feature_launches = phase12(pa, dev, card)
+        tidy()
+    if 13 in run:
+        res["phase13"], p13 = phase13(fa, pa, ms, dev, card)
     if run != set(PHASES):
         if args.out:
             write_json(args.out, res)
@@ -2012,13 +2547,18 @@ def main(argv=None) -> int:
                 if c["case"] == "train2048" and c["dtype"] == "float32")
     srow = next(c for c in p8
                 if c["case"] == "path512" and c["dtype"] == "float32")
+    k2_paths = {"phase5_split_serving": pa_launches,
+                "phase12_serve_features": pa_feature_launches,
+                "phase13_windowed": p13["k2_windowed"],
+                "phase13_split_beside_static": p13["k2_split"],
+                "phase13_planned_grid": p13["k2_planned"]}
+    k1_paths = {"phase7_training": fa_launches,
+                "phase13_static_prefill": p13["k1_static_prefill"]}
     kernels = {"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:189",
-        "launches": pa_launches + pa_feature_launches,
-        "launches_by_path": {"phase5_split_serving": pa_launches,
-                             "phase12_serve_features": pa_feature_launches},
+        "launches": sum(k2_paths.values()), "launches_by_path": k2_paths,
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -2026,7 +2566,8 @@ def main(argv=None) -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:83",
-        "launches": fa_launches, "max_abs_err": frow["max_abs_err"],
+        "launches": sum(k1_paths.values()), "launches_by_path": k1_paths,
+        "max_abs_err": frow["max_abs_err"],
         "ms": frow["ms"], "plain_ms": frow["plain_ms"],
         "bound_ms": frow["bound_ms"], "bound_by": frow["bound_by"],
         "library_ms": frow["library_ms"]}, {

@@ -61,9 +61,7 @@ class EngineConfig:
     In serving the K trial rows double as the co-serving axis: each row
     holds one model variant's weights and cache, and the serve engine
     routes per-arch request streams into the matching rows. The reference's
-    mesh-axis names, pod axis and FSDP are not ported; ``window`` exists so
-    the serve engine can reject it as the reference does (sliding-window
-    serving itself is not ported yet).
+    mesh-axis names, pod axis and FSDP are not ported.
     """
 
     n_trials: int  # K — concurrent model variants
@@ -73,7 +71,8 @@ class EngineConfig:
     data_size: int = 1  # logical data shards (pool partitions per trial)
     max_seq: int = 0  # per-request token capacity
     cache_dtype: torch.dtype = torch.bfloat16
-    window: int = 0  # sliding attention window in serving (not ported)
+    window: int = 0  # sliding attention window in serving (0 = full); the
+    # caches keep their absolute max_seq layout
     paged: bool = False  # KV in a shared block pool; False = dense per-slot
     # cache strips (the only layout for the ssm family)
     block_size: int = 16  # tokens per block
@@ -106,9 +105,9 @@ class EngineConfig:
     @property
     def cache_groups(self) -> int:
         """Distinct dense caches per trial in serving: chunked prefill
-        shares one cache per request group across its sequence-chunk
-        slots (the serve engine sets ``prefill_chunks`` to 1, so each of
-        its microbatch slots owns one)."""
+        (``prefill`` mode) shares one cache per request group across its
+        sequence-chunk slots (the serve engine sets ``prefill_chunks`` to
+        1, so each of its microbatch slots owns one)."""
         if self.prefill_chunks > 1:
             return self.n_microbatches // self.prefill_chunks
         return self.n_microbatches
@@ -440,13 +439,21 @@ def global_block_tables(eng: EngineConfig, tables):
                        torch.full_like(tables, -1))
 
 
-SERVE_MODES = ("decode", "append", "mixed", "verify")
+SERVE_MODES = ("prefill", "decode", "append", "mixed", "verify")
 
 
 def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
                    params, cache, batch, mode: str):
     """One pipelined serving call over dense strips or the paged pool.
 
+    prefill (dense only): batch = {tokens (K,M,mbg,seq)} — each slot's
+    rows fill their strips from position 0 (the tail zeroed) and emit the
+    first generated token; the static lockstep path. With
+    ``eng.prefill_chunks`` = nc > 1 the M slots are nc sequence chunks per
+    request group: slot m carries chunk ``m % nc`` at positions
+    ``(m % nc) · seq + arange(seq)``, and the nc chunk-slots of group
+    ``m // nc`` share one cache (each stage runs slots in order, so chunk
+    c's write lands before chunk c+1 reads it).
     decode: batch = {tokens (K,M,mbg,1), positions (K,M,mbg)} — one new token
     per row at its cache depth. append: tokens (K,M,mbg,qlen) inserted per
     row starting at ``positions`` (chunked prefill at ragged depths).
@@ -466,27 +473,36 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
     along in another row's call untouched. Paged (``eng.paged``): the batch
     also carries ``block_tables`` (K,M,mbg,width) shard-local ids into the
     pool. Dense: slot (k, m) reads and writes its own strips ``cache[k, m]``
-    (the engine runs with one cache group per slot). Returns (cache,
-    tokens_out (K,M,mbg) int32, logit_max (K,M,mbg) float32); the cache is
-    updated in place.
+    (or its group's, in chunked prefill). ``eng.window`` > 0 restricts
+    every query to the trailing window. Returns (cache, tokens_out
+    (K,M,mbg) int32, logit_max (K,M,mbg) float32); the cache is updated in
+    place.
     """
     if mode not in SERVE_MODES:
-        raise NotImplementedError(f"serve mode {mode!r} is not ported yet "
-                                  f"(one of {SERVE_MODES})")
+        raise ValueError(f"unknown serve mode {mode!r} (one of "
+                         f"{SERVE_MODES})")
     _check_family(cfg)
     if eng.paged:
+        if mode == "prefill":
+            raise ValueError("paged serving supports append/decode/mixed/"
+                             "verify only, got mode='prefill'")
         _check_paged_support(cfg, eng)
-    elif eng.cache_groups != eng.n_microbatches:
+    elif mode != "prefill" and eng.cache_groups != eng.n_microbatches:
         raise ValueError("dense append/decode index one cache group per "
                          "slot: run with prefill_chunks=1 (as the serve "
                          "engine does)")
     S, K = eng.n_stages, eng.n_trials
+    nc = eng.prefill_chunks if mode == "prefill" else 1
     plan = plan_stages(cfg, S)
     l_s = plan.layers_per_stage
-    tokens, positions = batch["tokens"], batch["positions"]
+    tokens = batch["tokens"]
+    positions = None if mode == "prefill" else batch["positions"]
     active = batch.get("active")
     qlens = batch.get("qlens") if mode in ("mixed", "verify") else None
-    stack_mode = "decode" if mode == "decode" else "append"
+    if mode == "decode" or (mode == "prefill" and nc == 1):
+        stack_mode = mode
+    else:  # appends, ragged waves and prefill chunks write at offsets
+        stack_mode = "append"
     tables = (global_block_tables(eng, batch["block_tables"]) if eng.paged
               else None)
     mbg, qlen = tokens.shape[-2], tokens.shape[-1]
@@ -511,11 +527,16 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
                 x = acts[s - 1]
             lo = s * l_s
             p_layers = trials[k]["layers"][lo:lo + l_s]
-            cell = (k,) if eng.paged else (k, m)
+            cell = (k,) if eng.paged else (k, m // nc)
             c = {"layers": {n: v[cell][lo:lo + l_s]
                             for n, v in cache["layers"].items()},
                  "shared": None}
-            start = positions[k, m]
+            if mode == "prefill":
+                # chunk m % nc of its request group (always 0 when nc = 1)
+                start = torch.full((mbg,), (m % nc) * qlen, dtype=torch.int32,
+                                   device=dev)
+            else:
+                start = positions[k, m]
             pos = start[:, None] + steps[None, :]
             ql = None if qlens is None else qlens[k, m]
             if ql is not None:
@@ -527,7 +548,8 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
             y, _ = lm.stack_apply(
                 cfg, opts, p_layers, x, pos=pos, mode=stack_mode, cache=c,
                 layer_mask=[lo + i < cfg.n_layers for i in range(l_s)],
-                kv_offset=start,
+                kv_offset=None if stack_mode == "prefill" else start,
+                window=eng.window,
                 block_tables=None if tables is None else tables[k, m],
                 write_mask=None if active is None else active[k, m],
                 q_lens=ql)
@@ -552,18 +574,25 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
 
 
 def make_serve_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
-                    mode: str) -> Callable:
+                    mode: str, tracer=None) -> Callable:
     """fn(params, cache, batch) -> (cache, tokens, logit_max) running
-    :func:`pipeline_serve` in ``mode`` (decode | append | mixed | verify).
-    PyTorch runs eagerly, so there is nothing to compile; the reference's
-    ``with_active`` flag is implied by an ``active`` batch entry."""
+    :func:`pipeline_serve` in ``mode`` (prefill | decode | append | mixed |
+    verify). The reference's ``with_active`` flag is implied by an
+    ``active`` batch entry.
+
+    ``tracer`` (an enabled ``repro_torch.obs.Tracer``) wraps the step to
+    emit a ``compile`` event at the first call of each (token qlen,
+    block-table width) signature, as the reference does where XLA
+    retraces. PyTorch runs eagerly and compiles nothing, but the event
+    stream stays the reference's. With None or a disabled tracer the bare
+    step comes back."""
     if mode in ("mixed", "verify") and cfg.family in ("ssm", "hybrid"):
         raise ValueError("mixed-tick/verify serving is attention-family "
                          "only: ragged padded tokens would advance "
                          "recurrent SSM state")
     if mode not in SERVE_MODES:
-        raise NotImplementedError(f"serve mode {mode!r} is not ported yet "
-                                  f"(one of {SERVE_MODES})")
+        raise ValueError(f"unknown serve mode {mode!r} (one of "
+                         f"{SERVE_MODES})")
     _check_family(cfg)
     if eng.paged:
         _check_paged_support(cfg, eng)
@@ -571,7 +600,20 @@ def make_serve_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
     def step(params, cache, batch):
         return pipeline_serve(cfg, opts, eng, params, cache, batch, mode)
 
-    return step
+    if tracer is None or not tracer.enabled:
+        return step
+    seen: set = set()
+
+    def traced(params, cache, batch):
+        bt = batch.get("block_tables")
+        key = (int(batch["tokens"].shape[-1]),
+               int(bt.shape[-1]) if bt is not None else 0)
+        if key not in seen:
+            seen.add(key)
+            tracer.compile(mode, qlen=key[0], table_width=key[1])
+        return step(params, cache, batch)
+
+    return traced
 
 
 def make_slot_reset(cfg: ArchConfig, eng: EngineConfig) -> Callable:

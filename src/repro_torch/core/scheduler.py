@@ -1,8 +1,9 @@
 """Hydra's shard-parallel task scheduler (the paper's "scheduler" box) —
-port of the training half of ``repro/core/scheduler.py``.
+port of ``repro/core/scheduler.py``.
 
 * **capacity planning** — how many concurrent trials K fit given the device
-  memory (params + optimizer + pipeline activation stash + caches);
+  memory (params + optimizer + pipeline activation stash + caches), and
+  the serving slot grid (:func:`plan_serve_capacity`);
 * **gang planning** — grouping a trial population into same-architecture
   gangs of size <= K_max and choosing microbatch counts so the pipeline
   bubble fraction meets a target.
@@ -14,14 +15,15 @@ estimate is held to is ``HBM_BYTES_PER_CHIP × HBM_BUDGET_FRACTION / S``.
 The training state is the port's own (:func:`state_bytes`): parameters and
 their gradient buffer in the parameter dtype, AdamW's m and v in fp32 —
 16 bytes per parameter in fp32, where the reference counts bf16
-parameters with fp32 m, v and master copy (2 + 12).
-(Serving capacity planning and failure re-planning are not ported yet.)
+parameters with fp32 m, v and master copy (2 + 12). Serving plans count
+the weights in the dtype they are served in (bf16 on the card).
+(Failure re-planning is not ported yet.)
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -139,6 +141,124 @@ def max_concurrent_trials(cfg: ArchConfig, eng: EngineConfig, seq_len: int,
     one = per_chip_bytes(cfg, dataclasses.replace(eng, n_trials=1), seq_len,
                          train, **state_bytes(param_dtype)).total
     return max(1, int(stage_budget(eng) // max(one, 1)))
+
+
+# ---------------------------------------------------------------------------
+# Serving capacity planning (continuous-batching engine)
+# ---------------------------------------------------------------------------
+
+
+def plan_serve_capacity(cfg: ArchConfig, base_eng: EngineConfig,
+                        max_seq: int, target_bubble: float = 0.25,
+                        max_slots: int = 64, paged: bool = False,
+                        expected_seq: Optional[int] = None,
+                        block_size: int = 16,
+                        hbm_bytes: Optional[int] = None,
+                        budget_fraction: float = HBM_BUDGET_FRACTION,
+                        mix: Optional[Sequence[tuple]] = None,
+                        hit_rate: float = 0.0,
+                        overcommit: float = 1.0,
+                        host_blocks: int = 0,
+                        param_dtype: torch.dtype = torch.bfloat16,
+                        ) -> EngineConfig:
+    """Choose the serving slot grid for one model — or a co-serving gang
+    (the reference's planner, line for line).
+
+    The card holds all S stages, so each stage's estimate
+    (``per_chip_bytes(train=False)``, weights in ``param_dtype``) is held
+    to ``hbm_bytes / S × budget_fraction``; ``hbm_bytes`` defaults to the
+    card's ``HBM_BYTES_PER_CHIP``. ``mix`` sizes the grid for a traffic
+    mix across a K-variant gang: one ``(arrival_weight, expected_seq)``
+    pair per co-served arch; the returned config carries ``n_trials =
+    len(mix)`` and every per-trial cost is multiplied by K (``mix=None``:
+    K = 1, ``expected_seq`` the lone expectation).
+
+    Dense: start from the pipeline-bubble target ((S-1)/(K·M+S-1) <=
+    target), then shrink M until the strips (every cell reserves
+    ``max_seq``) fit. Paged (``paged=True``): the leftover budget becomes
+    one block pool per trial, and M is sized so the pools back K × M ×
+    microbatch rows at their arrival-weighted *expected* lengths — lowered
+    by ``hit_rate`` (the expected share of tokens served from shared
+    prefix-cache blocks) and widened by ``overcommit`` (the factor the
+    batcher admits past the pool, retraction absorbing the tail);
+    ``host_blocks`` is carried into the config and never widens the grid.
+    The returned config carries ``n_blocks`` (per trial) and
+    ``block_size``.
+    """
+    if not 0.0 <= hit_rate < 1.0:
+        raise ValueError(f"hit_rate must be in [0, 1), got {hit_rate}")
+    if overcommit < 1.0:
+        raise ValueError(f"planning overcommit must be >= 1.0 (the batcher "
+                         f"accepts < 1.0 as a runtime safety margin, but a "
+                         f"grid planned below capacity is dead weight), "
+                         f"got {overcommit}")
+    if host_blocks < 0:
+        raise ValueError(f"host_blocks must be >= 0, got {host_blocks}")
+    if (overcommit > 1.0 or host_blocks > 0) and not paged:
+        raise ValueError("overcommit > 1.0 and host_blocks require "
+                         "paged=True (dense strips cannot be retracted or "
+                         "spilled)")
+    s = base_eng.n_stages
+    budget = ((HBM_BYTES_PER_CHIP if hbm_bytes is None else hbm_bytes)
+              / s * budget_fraction)
+    pbytes = dict(param_bytes=param_dtype.itemsize)
+    if mix is not None:
+        if not mix or any(w < 0 for w, _ in mix) \
+                or sum(w for w, _ in mix) <= 0:
+            raise ValueError(f"mix must be non-empty (weight, expected_seq) "
+                             f"pairs with positive total weight, got {mix}")
+        k_trials = len(mix)
+        w_total = sum(w for w, _ in mix)
+        # per-row expected demand of trial k, scaled by its arrival share
+        demands = [min(max(int(e), 1), max_seq) * (w * k_trials / w_total)
+                   for w, e in mix]
+    else:
+        k_trials = 1
+        demands = [min(max(expected_seq or max_seq // 2, 1), max_seq)]
+    if s > 1:
+        m_bubble = math.ceil((s - 1) * (1.0 - target_bubble)
+                             / max(target_bubble * k_trials, 1e-9))
+    else:
+        m_bubble = 1
+    if paged:
+        eng = dataclasses.replace(base_eng, n_trials=k_trials,
+                                  max_seq=max_seq, paged=True,
+                                  block_size=block_size, n_blocks=0,
+                                  n_microbatches=1)
+        est = per_chip_bytes(cfg, dataclasses.replace(eng, n_trials=1),
+                             max_seq, train=False, **pbytes)
+        # the per-tick working set does not scale with K: a tick advances
+        # one slot per stage
+        fixed = (est.params_bytes + est.opt_bytes) * k_trials + est.act_bytes
+        token_b = kv_token_bytes_per_chip(cfg, eng)
+        dp = eng.data_size
+        per_row = -(-max_seq // block_size)  # serve.paging.blocks_for
+        # floor: every (trial, shard) partition backs one max_seq request
+        local_blocks = max(
+            int(budget - fixed) // (token_b * block_size * k_trials),
+            per_row)
+        mean_demand = max(sum(demands) / k_trials * (1.0 - hit_rate), 1.0)
+        m_cap = int(local_blocks * block_size * overcommit
+                    // (mean_demand * eng.microbatch))
+        m = min(max_slots, max(1, m_cap))
+        # blocks beyond the capped grid's worst case are dead weight
+        local_blocks = min(local_blocks, max(eng.microbatch * m, 1) * per_row)
+        return dataclasses.replace(eng, n_microbatches=m,
+                                   n_blocks=local_blocks * dp,
+                                   host_blocks=host_blocks)
+    m = min(max(m_bubble, base_eng.n_microbatches, 1), max_slots)
+    eng = dataclasses.replace(base_eng, n_trials=k_trials, n_microbatches=m,
+                              max_seq=max_seq)
+
+    def total(e):
+        one = per_chip_bytes(cfg, dataclasses.replace(e, n_trials=1),
+                             max_seq, train=False, **pbytes)
+        return ((one.params_bytes + one.opt_bytes + one.cache_bytes)
+                * k_trials + one.act_bytes)
+
+    while total(eng) > budget and eng.n_microbatches > 1:
+        eng = dataclasses.replace(eng, n_microbatches=eng.n_microbatches - 1)
+    return eng
 
 
 # ---------------------------------------------------------------------------

@@ -121,9 +121,9 @@ def attn_apply(cfg: ArchConfig, opts: ModelOptions, p, x, *, pos,
     """x (b, s, d) -> (b, s, d); dense cache {'k','v'}: (b, S_max, h_kv, hd).
 
     ``block_tables`` switches append/decode to the paged pool layout (cache
-    is then the shared (n_blocks, block_size, h_kv, hd) pool). In append
-    and decode ``write_mask`` (b,) gates which rows write this call, in the
-    pool and in dense strips alike. With
+    is then the shared (n_blocks, block_size, h_kv, hd) pool). In every
+    serving mode ``write_mask`` (b,) gates which rows write this call, in
+    the pool and in dense strips alike. With
     ``opts.use_paged_kernel`` attention reads the pool straight through the
     tables (``kernels.ops.paged_attention``); otherwise each row's logical
     view is gathered first. Returns (out, cache) — caches are updated in
@@ -147,13 +147,16 @@ def attn_apply(cfg: ArchConfig, opts: ModelOptions, p, x, *, pos,
         out = L.attention(q, k, v, causal=causal, window=window, opts=opts)
     elif mode == "prefill":
         # write k/v into the cache from offset 0 (windowed caches keep the
-        # tail), zeroing the rest of the strip as the reference's pad does
+        # tail), zeroing the rest of the strip as the reference's pad does;
+        # rows outside ``write_mask`` keep their strips
         s_cache = cache["k"].shape[1]
         kw, vw = (k[:, -s_cache:], v[:, -s_cache:]) if s >= s_cache else (k, v)
         n = kw.shape[1]
+        rows = (slice(None) if write_mask is None
+                else write_mask.nonzero().flatten())
         for name, new in (("k", kw), ("v", vw)):
-            cache[name][:, :n] = new.to(cache[name].dtype)
-            cache[name][:, n:] = 0
+            cache[name][rows, :n] = new[rows].to(cache[name].dtype)
+            cache[name][rows, n:] = 0
         out = L.attention(q, k, v, causal=causal, window=window, opts=opts)
     elif mode in ("append", "decode") and block_tables is not None:
         cap = block_tables.shape[1] * cache["k"].shape[1]

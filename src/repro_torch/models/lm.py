@@ -186,7 +186,7 @@ def stack_apply(cfg: ArchConfig, opts: ModelOptions, layer_params, x, *,
     cache: {"layers": {"k", "v"} or {"ssm", "conv"} stacked per layer,
     "shared": None} or None; with ``block_tables`` the stacked leaves are
     per-layer block *pools*. ``write_mask`` (b,) gates which rows' cache
-    entries append / decode may write; ``q_lens`` (b,) makes append a
+    entries a serving call may write; ``q_lens`` (b,) makes append a
     ragged wave (see ``blocks.attn_apply``).
     layer_mask: (n_local,) bools — False = padded no-op layer (skipped).
     In train mode with ``opts.remat`` each layer is a

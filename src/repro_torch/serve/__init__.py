@@ -20,6 +20,7 @@ from repro_torch.serve.engine import (  # noqa: F401
     ServeEngine,
     ServeStats,
     SpecStats,
+    static_serve,
 )
 from repro_torch.serve.paging import (  # noqa: F401
     BlockAllocator,

@@ -57,13 +57,20 @@ transfer flush before the compute call that needs it, on the current
 stream, so no call reads a block whose copy is pending. Greedy tokens stay
 bit-identical to the plain split schedule with every feature on.
 
-Not ported yet (the constructor raises ``NotImplementedError``):
-sliding-window serving; ``static_serve`` is not ported either. The
-reference's own rejections come first (``ValueError``): a window, fused
-admission or speculation for a recurrent family, the prefix cache,
-overcommit or the paged kernel without a paged pool, a paged pool for
-the ssm family, speculation together with fused admission, and bad
-drafter pairings.
+* **Sliding window** (``eng.window`` > 0, attention family only): every
+  query sees only the trailing window; the strips and the pool keep their
+  absolute ``max_seq`` layout and the steps mask the rest, so greedy
+  tokens equal a windowed single-device oracle.
+
+The constructor raises the reference's ``ValueError`` for a window, fused
+admission or speculation on a recurrent family, the prefix cache,
+overcommit or the paged kernel without a paged pool, a paged pool for the
+ssm family, speculation together with fused admission, and bad drafter
+pairings.
+
+:func:`static_serve` is the lockstep baseline over the same slot grid:
+one ``prefill`` call per group of uniform-length prompts, then decode
+calls until the whole group drains.
 """
 from __future__ import annotations
 
@@ -367,14 +374,12 @@ class ServeEngine:
             raise ValueError("overcommit > 1.0 preempts paged block "
                              "commitments; dense strips cannot be retracted "
                              "— enable eng.paged")
-        if eng.window > 0:
-            raise NotImplementedError("sliding-window serving is not ported "
-                                      "yet")
         self.cfg = cfg
         self.opts = opts
         self.device = resolve_device(device)
         # NULL_TRACER when off: emission sites guard with `if tr.enabled:`
         self.trace = resolve(tracer)
+        _tr = self.trace if self.trace.enabled else None
         self._round_modes: list = []
         self._retracted: set = set()  # rids retracted at least once (tracing)
         self.eng = dataclasses.replace(eng, prefill_chunks=1)
@@ -383,18 +388,19 @@ class ServeEngine:
         self.params = params
         self.mb_global = self.eng.mb_global
         self.decode_step = pl.make_serve_step(cfg, self.opts, self.eng,
-                                              "decode")
+                                              "decode", tracer=_tr)
         self.append_step = pl.make_serve_step(cfg, self.opts, self.eng,
-                                              "append")
+                                              "append", tracer=_tr)
         self.fused = bool(fused)
         self.mixed_step = (pl.make_serve_step(cfg, self.opts, self.eng,
-                                              "mixed") if self.fused else None)
+                                              "mixed", tracer=_tr)
+                           if self.fused else None)
         # gang speculation: each target trial row drafts on its peer row
         self.spec_gamma = int(spec_gamma)
         self.spec_pairs = dict(spec_pairs) if self.spec_gamma > 0 else {}
         self.spec_stats = SpecStats()
         self.verify_step = (pl.make_serve_step(cfg, self.opts, self.eng,
-                                               "verify")
+                                               "verify", tracer=_tr)
                             if self.spec_gamma > 0 else None)
         self.paged = bool(self.eng.paged)
         self.allocator = self.store = self.transfer = self.reset_fn = None
@@ -1151,3 +1157,85 @@ class ServeEngine:
         slot.release()  # the cell is reusable the same round it finishes
         if peer is not None:  # the drafter mirror cell frees with its target
             peer.release()
+
+
+# ---------------------------------------------------------------------------
+# Static-batching baseline (the lockstep path)
+# ---------------------------------------------------------------------------
+
+
+def static_serve(cfg: ArchConfig, eng: pl.EngineConfig, params, requests,
+                 opts: Optional[ModelOptions] = None, device=None):
+    """Lockstep static batching over the same slot grid, for comparison.
+
+    Single-arch (trial row 0 of ``params`` only: the lockstep baseline has
+    no routing) over dense per-slot strips. Admits requests in consecutive
+    groups of ``n_cells``, prefills each group in one call (prompts must
+    share one length — the static path's restriction), then decodes until
+    EVERY request of the group hits its budget; early finishers idle their
+    slots. Arrival times are ignored (a clairvoyant static scheduler, which
+    flatters the baseline). ``device`` as :class:`ServeEngine`'s. Returns
+    (completions, ServeStats)."""
+    opts = opts or ModelOptions()
+    dev = resolve_device(device)
+    # the lockstep baseline keeps dense per-slot strips (it IS the
+    # worst-case reservation the paged engine is measured against)
+    eng = dataclasses.replace(eng, n_trials=1, prefill_chunks=1, paged=False,
+                              n_blocks=0)
+    mb_global = eng.mb_global
+    n_cells = eng.n_microbatches * mb_global
+    prefill = pl.make_serve_step(cfg, opts, eng, "prefill")
+    decode = pl.make_serve_step(cfg, opts, eng, "decode")
+    grid = (1, eng.n_microbatches, mb_global)
+    stats = ServeStats()
+    completions = []
+    reqs = list(requests)
+    t0 = time.monotonic()
+    for g0 in range(0, len(reqs), n_cells):
+        group = reqs[g0:g0 + n_cells]
+        plens = {r.prompt_len for r in group}
+        if len(plens) != 1:
+            raise ValueError("static batching requires uniform prompt "
+                             f"lengths per group, got {sorted(plens)}")
+        plen = plens.pop()
+        tokens = np.zeros(grid + (plen,), np.int32)
+        for i, r in enumerate(group):
+            tokens[0, i // mb_global, i % mb_global] = r.prompt
+        cache = pl.serve_cache_struct(cfg, eng, device=dev)
+        stats.ticks += 1
+        admitted_tick = stats.ticks  # the group's prefill tick
+        stats.calls += 1
+        stats.occupancy_samples.append(len(group) / n_cells)
+        stats.prompt_tokens += plen * len(group)
+        cache, tok, _ = prefill(params, cache,
+                                {"tokens": torch.from_numpy(tokens).to(dev)})
+        gen = [tok]
+        stats.tokens_generated += len(group)
+        max_gen = max(r.max_new_tokens for r in group)
+        positions = torch.full(grid, plen, dtype=torch.int32, device=dev)
+        for t in range(1, max_gen):
+            live = sum(1 for r in group if r.max_new_tokens > t)
+            stats.ticks += 1
+            stats.calls += 1
+            stats.occupancy_samples.append(live / n_cells)
+            stats.decode_busy_samples.append(live / n_cells)
+            cache, tok, _ = decode(params, cache, {
+                "tokens": gen[-1][..., None], "positions": positions})
+            gen.append(tok)
+            stats.tokens_generated += live
+            positions = positions + 1
+        toks = torch.stack(gen, dim=-1).cpu().numpy()  # (1, M, mbg, max_gen)
+        for i, r in enumerate(group):
+            comp = Completion(
+                rid=r.rid, prompt_len=plen,
+                tokens=toks[0, i // mb_global, i % mb_global,
+                            :r.max_new_tokens].tolist(),
+                arrival=r.arrival, admitted_tick=admitted_tick,
+                # the decode tick that produced the request's last token
+                # (its slot still idles until the group drains)
+                finished_tick=admitted_tick + r.max_new_tokens - 1,
+                arch=r.arch, first_token_tick=admitted_tick)
+            completions.append(comp)
+            stats.record_completion(comp)
+    stats.wall_s = time.monotonic() - t0
+    return sorted(completions, key=lambda c: c.rid), stats

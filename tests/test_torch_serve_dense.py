@@ -202,13 +202,13 @@ def test_recurrent_family_rejections_match_reference():
                      (TOpts(), dict(overcommit=1.5))):
         with pytest.raises(ValueError, match="paged"):
             TEngine(cfg, eng, params, opts, device="cpu", **kw)
-    # what the reference allows but the port has not ported yet
+    # what the reference allows the attention family: a window
     glm = tget("chatglm3-6b").reduced()
     glm_params = tpl.init_trial_params(glm, eng, tpl.plan_stages(glm, 2),
                                        torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
-        TEngine(glm, dataclasses.replace(eng, window=4), glm_params,
-                device="cpu")
+    windowed = TEngine(glm, dataclasses.replace(eng, window=4), glm_params,
+                       device="cpu")
+    assert windowed.eng.window == 4 and windowed.reset_fn is not None
 
 
 @pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])

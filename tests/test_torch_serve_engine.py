@@ -167,10 +167,18 @@ def test_engine_rejects_unported_features_and_missing_cuda():
                            n_blocks=4, cache_dtype=torch.float32)
     plan = tpl.plan_stages(cfg, 1)
     params = tpl.init_trial_params(cfg, eng, plan, torch.Generator())
-    # sliding-window serving is the one engine feature still unported
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        TEngine(cfg, dataclasses.replace(eng, window=4), params,
-                device="cpu")
+    # sliding-window serving is ported for the attention family (held to
+    # the reference in test_torch_serve_window.py); recurrent families
+    # keep the reference's ValueError
+    windowed = TEngine(cfg, dataclasses.replace(eng, window=4), params,
+                       device="cpu")
+    assert windowed.eng.window == 4
+    ssm = tget("falcon-mamba-7b").reduced()
+    ssm_eng = dataclasses.replace(eng, paged=False, n_blocks=0, window=4)
+    with pytest.raises(ValueError, match="sliding-window"):
+        TEngine(ssm, ssm_eng, tpl.init_trial_params(
+            ssm, ssm_eng, tpl.plan_stages(ssm, 1), torch.Generator()),
+            device="cpu")
     # dense strips are ported: the engine resets rows instead of paging
     dense = TEngine(cfg, dataclasses.replace(eng, paged=False), params,
                     device="cpu")
