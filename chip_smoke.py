@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with a CUDA card (H100):
     python3 chip_smoke.py [--out results.json] [--phases 2,3,5]
 
 It builds the hand-written CUDA kernels from the checkout's sources (one
-nvcc per source, all started together) and runs thirteen phases, each a hard
+nvcc per source, all started together) and runs fifteen phases, each a hard
 assert; it exits 0 only if every phase passed, and exits non-zero without
 a result when no CUDA device is visible. ``--phases`` runs a subset (the
 build always runs) and then prints neither the kernels line nor the last
@@ -33,7 +33,9 @@ line.
 3. The flash-attention kernel (K1) against its plain version at the
    training path's shape (b 1, seq 2048, 32 query heads on 2 KV heads,
    head_dim 128, causal), at phase 13's static prefill shape (b 2, seq
-   512) and the reference sweep's edge cases (ragged sq
+   512), at the same two shapes for zamba2-7b's shared block (32 heads on
+   32, head_dim 112: not a multiple of 64) and the reference sweep's edge
+   cases (ragged sq
    33 with hq = hkv, window 24, kv_offset 32 with sq 16 / sk 48) plus sq
    100 (not a multiple of the bf16 tile's 64 rows) and a head_dim 64 case
    with kv_offset 64, fp32 (tol 2e-5) and bf16 (tol 2e-2); the autograd
@@ -147,7 +149,33 @@ line.
    for the same model (bf16, paged, expected length 600, at most 8
    slots): the planned grid serves a few requests, and its peak memory
    stands beside the plan's estimate.
-14. A {"kernels": [...]} line for every ported kernel, the card line, and
+14. SSM training. (a) falcon-mamba-7b at full width, 2 fp32 layers,
+   K = 2, S = 2, 2 microbatches, seq 256, 2 steps of the pipelined train
+   step with K3 in the forward (backward: autograd of the plain scan)
+   against K sequential runs through the chunked scan, by phase 6's
+   criteria. (b) ``run_model_selection`` as ``launch/train.py`` calls it
+   on 4 full-width layers, 2 trials, 2 stages, seq 512, 3 steps, remat,
+   K3: K3's launches equal the schedule's, 0 restarts, finite losses;
+   step time, tokens/s, model FLOP share, K3's share of step time and peak
+   memory recorded, as phase 7.
+15. The hybrid family, zamba2-7b (a Mamba2 backbone and one shared
+   attention block at every 6th layer; K1 at head_dim 112). (a) Exactness
+   at full width, 12 fp32 layers (one shared site in each of the 2
+   stages): the dense engine on 7 staggered requests (slots recycle;
+   every reset row, shared strips included, is zero) and static serving
+   (K1 in each prefill) equal the oracle; chunked prefill (4 chunks)
+   equals plain prefill in tokens and caches; the train step (K1 fp32)
+   equals sequential runs by phase 6's criteria. (b) All 81 layers and
+   13 shared sites in bf16 (fp32 SSM state) on phase 5's grid and trace
+   through the dense engine: every budget met, a second run's tokens
+   equal, wall, tokens/s, ms per call, peak memory and one profiled
+   decode call; then static serving of 8 x 512-token prompts: K1's
+   launches = prefill calls x slots x 13 sites, all on the tensor cores,
+   and every K1 launch of one profiled prefill call within 2e-2 of the
+   plain version. (c) ``run_model_selection`` on 12 full-width layers,
+   seq 2048, 3 steps, remat, K1 fp32 at head_dim 112: K1's launches equal
+   the schedule's; what phase 7 records.
+16. A {"kernels": [...]} line for every ported kernel, the card line, and
    the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 from __future__ import annotations
@@ -381,12 +409,15 @@ def phase2(pa, dev, flush, card):
 # Phase 3: the flash-attention kernel vs its plain version
 # ---------------------------------------------------------------------------
 
-# name, b, sq, sk, hq, hkv, hd, causal, window, kv_offset; the first two
+# name, b, sq, sk, hq, hkv, hd, causal, window, kv_offset; the first four
 # are timed: the training path's shape and phase 13's static prefill (b 2
-# rows a slot, 512-token prompts)
+# rows a slot, 512-token prompts), then the same for zamba2-7b's shared
+# block (MHA, 32 heads on 32, head_dim 112; phase 15)
 FLASH_CASES = [
     ("train2048", 1, 2048, 2048, HQ, HKV, HD, True, 0, 0),
     ("serve_prefill512", 2, 512, 512, HQ, HKV, HD, True, 0, 0),
+    ("zamba2_train2048_hd112", 1, 2048, 2048, 32, 32, 112, True, 0, 0),
+    ("zamba2_prefill512_hd112", 2, 512, 512, 32, 32, 112, True, 0, 0),
     ("ragged_sq33_mha", 2, 33, 33, 4, 4, 32, True, 0, 0),
     ("window24", 1, 128, 128, 8, 2, 16, True, 24, 0),
     ("offset32", 1, 16, 48, 4, 1, 16, True, 0, 32),
@@ -395,7 +426,8 @@ FLASH_CASES = [
 ]
 
 
-FLASH_TIMED = ("train2048", "serve_prefill512")
+FLASH_TIMED = ("train2048", "serve_prefill512", "zamba2_train2048_hd112",
+               "zamba2_prefill512_hd112")
 
 
 def flash_pairs(sq, sk, causal, window, off):
@@ -587,6 +619,18 @@ K2_KERNELS = ("paged_attention_kernel", "split_kv_kernel", "combine_kernel",
               "append_mma_kernel")
 
 
+def device_kernels(prof) -> list:
+    """(name, start ns, ms) of every kernel and copy a finished profile
+    recorded on the card, read from its raw records: parsing them into
+    the profiler's event tree takes minutes for a run of several hundred
+    thousand host ops and kernels."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.start_ns(), e.duration_ns() / 1e6)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
 def launch_bound_s(q, k_pool, v_pool, block_tables, kv_offset, kv_len,
                    causal=True, window=0, q_lens=None) -> float:
     """The least time one K2 launch could take on this card (s), as phase
@@ -619,7 +663,6 @@ def profile_k2_by_mode(pa, make_engine, reqs):
     kernels are taken, so nothing recorded from before the run counts.)"""
     from bisect import bisect_right
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     engine = make_engine()
@@ -651,20 +694,20 @@ def profile_k2_by_mode(pa, make_engine, reqs):
     finally:
         pa.paged_attention_kernel = real
     assert "none" not in modes, "a K2 launch outside decode and append"
-    k2 = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-          and any(k in e.name for k in K2_KERNELS)]
-    main = sorted((e for e in k2 if "combine_kernel" not in e.name),
-                  key=lambda e: e.time_range.start)
+    k2 = [e for e in device_kernels(prof)
+          if any(k in e[0] for k in K2_KERNELS)]
+    main = sorted((e for e in k2 if "combine_kernel" not in e[0]),
+                  key=lambda e: e[1])
     assert len(main) >= len(modes), (len(main), len(modes))
     main = main[len(main) - len(modes):]
-    starts = [e.time_range.start for e in main]
+    starts = [e[1] for e in main]
     dev_ms = {"decode": 0.0, "append": 0.0}
-    for e, m in zip(main, modes):
-        dev_ms[m] += e.time_range.elapsed_us() / 1e3
-    for e in k2:
-        i = bisect_right(starts, e.time_range.start) - 1
-        if "combine_kernel" in e.name and i >= 0:
-            dev_ms[modes[i]] += e.time_range.elapsed_us() / 1e3
+    for (_, _, ms), m in zip(main, modes):
+        dev_ms[m] += ms
+    for name, start, ms in k2:
+        i = bisect_right(starts, start) - 1
+        if "combine_kernel" in name and i >= 0:
+            dev_ms[modes[i]] += ms
     calls = {m: modes.count(m) for m in ("decode", "append")}
     return comps, wall, {
         name: dict(launches=calls[name], kernel_s=dev_ms[name] / 1e3,
@@ -791,11 +834,14 @@ def phase5(pa, dev, card):
 TRAIN_HP = {"lr": [3e-3, 1e-3], "wd": [0.0, 0.01]}
 
 
-def sequential_reference(cfg, params_host, batches, eval_batch, k, dev):
+def sequential_reference(cfg, params_host, batches, eval_batch, k, dev,
+                         hp=TRAIN_HP):
     """Trial k trained alone: its own unpipelined loss (the mean over the
-    microbatches of lm.loss_fn, plain attention), its true gradient norm,
-    the same AdamW. Returns (per-step losses, the loss on ``eval_batch``
-    after the last update, final params on the host)."""
+    microbatches of lm.loss_fn, plain attention and the chunked scan), its
+    true gradient norm, the same AdamW with trial k's row of ``hp``.
+    Returns (per-step losses, the loss on ``eval_batch`` after the last
+    update, final params on the host, the first step's gradient on the
+    host)."""
     from repro_torch.models import lm
     from repro_torch.models.layers import ModelOptions
     from repro_torch.optim.adamw import AdamW
@@ -806,7 +852,7 @@ def sequential_reference(cfg, params_host, batches, eval_batch, k, dev):
     stacked = lambda tree: tree_map(lambda t: t[None], tree)
     opt = AdamW(grad_clip=1.0)
     state = opt.init(stacked(p))
-    hp = {n: v[k:k + 1] for n, v in TRAIN_HP.items()}
+    hp = {n: v[k:k + 1] for n, v in hp.items()}
 
     def loss_of(batch):
         n_micro = batch["tokens"].shape[1]
@@ -815,11 +861,13 @@ def sequential_reference(cfg, params_host, batches, eval_batch, k, dev):
             "labels": torch.from_numpy(batch["labels"][k, m]).to(dev)})
             for m in range(n_micro)) / n_micro
 
-    losses = []
+    losses, first = [], None
     for step, batch in enumerate(batches):
         loss = loss_of(batch)
         loss.backward()
         grads = tree_map(lambda t: t.grad[None], p)
+        if step == 0:
+            first = tree_map(lambda t: t[0].to("cpu", copy=True), grads)
         sq = [torch.linalg.vector_norm(g).square()
               for g in tree_leaves(grads)]
         opt.update(stacked(p), grads, state, hp, step,
@@ -829,23 +877,31 @@ def sequential_reference(cfg, params_host, batches, eval_batch, k, dev):
     with torch.no_grad():
         final_loss = loss_of(eval_batch).item()
     return losses, final_loss, tree_map(
-        lambda t: t.detach().to("cpu", copy=True), p)
+        lambda t: t.detach().to("cpu", copy=True), p), first
 
 
-def phase6(dev, card):
-    from repro_torch.configs import get_config
+def train_vs_sequential(cfg, opts, seq, seed, dev, card, hp=TRAIN_HP):
+    """K = 2 trials, 2 stages, 2 microbatches, 2 steps of the pipelined
+    train step under ``opts`` (the kernels on) against K independent
+    unpipelined runs through the plain versions, per-trial learning rates
+    and weight decays ``hp``: losses, and each trial's loss on a held-out
+    batch after the last update, within 2e-4; parameters within 5e-3;
+    each trial's parameter change within 10 % of the sequential run's;
+    and, before any optimizer step, each leaf of each trial's first
+    gradient within 1e-3 of its largest entry (fp32 sums in other orders:
+    up to 5e-5 on an NVIDIA H100 80GB HBM3 at 700 W,
+    scripts/train_step_sensitivity.py; a lost contribution, such as one
+    stage's share of a shared block's gradient, is of the order of 1)."""
     from repro_torch.core import pipeline as pl
     from repro_torch.core.partitioner import plan_stages
     from repro_torch.data.pipeline import TrainBatches
-    from repro_torch.models.layers import ModelOptions
     from repro_torch.optim.adamw import AdamW
     from repro_torch.tree import tree_leaves, tree_map
 
-    cfg = dataclasses.replace(get_config("chatglm3-6b"), n_layers=2)
     eng = pl.EngineConfig(n_trials=2, n_microbatches=2, microbatch=1,
                           n_stages=2)
-    seq, n_steps = 512, 2
-    gen = torch.Generator(device=dev).manual_seed(3)
+    n_steps = 2
+    gen = torch.Generator(device=dev).manual_seed(seed)
     params = pl.init_trial_params(cfg, eng, plan_stages(cfg, 2), gen,
                                   device=dev)
     host0 = tree_map(lambda t: t.to("cpu", copy=True), params)
@@ -856,11 +912,19 @@ def phase6(dev, card):
     data.close()
     opt = AdamW(grad_clip=1.0)
     state = opt.init(params)
-    opts = ModelOptions(remat=True, use_flash_kernel=True)
-    step = pl.make_train_step(cfg, opts, eng, opt)
+    first = {}
+
+    class Capture:  # the optimizer, keeping the first step's gradient
+        def update(self, params_, grads, *a, **kw):
+            if not first:
+                first["grads"] = tree_map(lambda t: t.to("cpu", copy=True),
+                                          grads)
+            return opt.update(params_, grads, *a, **kw)
+
+    step = pl.make_train_step(cfg, opts, eng, Capture())
     pipe_losses = []
     for i, batch in enumerate(batches):
-        params, state, met = step(params, state, batch, TRAIN_HP, i)
+        params, state, met = step(params, state, batch, hp, i)
         pipe_losses.append(met["loss"].tolist())
     with torch.no_grad():
         pipe_final = pl.pipeline_train_loss(cfg, opts, eng, params,
@@ -870,10 +934,14 @@ def phase6(dev, card):
     gc.collect()
     torch.cuda.empty_cache()
     loss_err = param_err = 0.0
-    change_err = []
+    change_err, grad_err = [], []
     for k in range(eng.n_trials):
-        ref_losses, ref_final, ref_params = sequential_reference(
-            cfg, host0, batches, eval_batch, k, dev)
+        ref_losses, ref_final, ref_params, ref_grads = sequential_reference(
+            cfg, host0, batches, eval_batch, k, dev, hp)
+        grad_err.append(max(
+            float((a[k] - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(tree_leaves(first["grads"]),
+                            tree_leaves(ref_grads))))
         loss_err = max(loss_err, abs(pipe_final[k] - ref_final), max(
             abs(a[k] - b) for a, b in zip(pipe_losses, ref_losses)))
         leaves = list(zip(tree_leaves(host0), tree_leaves(pipe_params),
@@ -888,30 +956,68 @@ def phase6(dev, card):
             / max(float((b - p0[k]).abs().max()) for p0, _, b in leaves))
         gc.collect()
         torch.cuda.empty_cache()
-    rec = dict(card=card, layers=cfg.n_layers, d_model=cfg.d_model,
-               trials=eng.n_trials, stages=eng.n_stages,
+    rec = dict(card=card, arch=cfg.name, layers=cfg.n_layers,
+               d_model=cfg.d_model, trials=eng.n_trials, stages=eng.n_stages,
                microbatches=eng.n_microbatches, seq=seq, steps=n_steps,
                pipelined_losses=pipe_losses, pipelined_final_losses=pipe_final,
                max_loss_err=loss_err, max_param_err=param_err,
-               param_change_rel_err=change_err)
-    say("phase 6: pipelined train step (flash kernel) vs sequential "
-        "single-trial runs:", json.dumps(rec))
+               param_change_rel_err=change_err,
+               first_grad_rel_err=grad_err, lr=list(hp["lr"]),
+               wd=list(hp["wd"]))
+    say(f"training exactness, {cfg.name}:", json.dumps(rec))
+    assert max(grad_err) < 1e-3, f"first-step gradient error {grad_err}"
     assert loss_err < 2e-4, f"loss error {loss_err}"
     assert param_err < 5e-3, f"param error {param_err}"
     assert max(change_err) < 0.1, f"parameter change error {change_err}"
     return rec
 
 
+def phase6(dev, card):
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import ModelOptions
+
+    cfg = dataclasses.replace(get_config("chatglm3-6b"), n_layers=2)
+    rec = train_vs_sequential(
+        cfg, ModelOptions(remat=True, use_flash_kernel=True), 512, 3, dev,
+        card)
+    say("phase 6: pipelined train step (flash kernel) vs sequential "
+        "single-trial runs:", json.dumps(rec))
+    return rec
+
+
 def model_flops_per_step(cfg, eng, seq):
     """Model FLOPs of one train step (no remat recompute counted): 6 per
-    matmul parameter per token (forward + backward), plus attention's
-    4·hd·hq per attended causal pair per layer, times 3."""
+    matmul weight per token (forward + backward), plus 3 times each
+    forward's other work: attention's 4·hd·hq per attended causal pair;
+    Mamba1's scan, 4·di·n per token (decay and input, then C·h); Mamba2's
+    chunked SSD, 2·ck·nh·(n + hd) per token within its chunk of ck plus
+    4·nh·hd·n for the state in and out. A hybrid arch's shared block
+    counts once per site it runs at."""
     tokens = eng.n_trials * eng.n_microbatches * eng.mb_global * seq
-    matmul = cfg.n_layers * (cfg.layer_param_count() - 2 * cfg.d_model) \
-        + cfg.d_model * cfg.vocab_size  # layers' weights + the head
+    d, L = cfg.d_model, cfg.n_layers
     pairs = seq * (seq + 1) // 2
-    attn = 3 * 4 * cfg.head_dim * cfg.n_heads * pairs * cfg.n_layers
-    return 6 * matmul * tokens + attn * tokens // seq
+    attn = lambda n: 3 * 4 * cfg.head_dim * cfg.n_heads * pairs * n
+    head = d * cfg.vocab_size
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        di, n, r = s.d_inner(d), s.d_state, s.resolved_dt_rank(d)
+        matmul = L * (d * 2 * di + di * (r + 2 * n) + r * di + di * d) + head
+        return 6 * matmul * tokens + 3 * 4 * di * n * L * tokens
+    if cfg.family == "hybrid":
+        from repro_torch.models import lm
+        s = cfg.ssm
+        di, n, g, hd = s.d_inner(d), s.d_state, s.n_groups, s.head_dim
+        nh, ck = s.n_ssm_heads(d), min(s.chunk_size, seq)
+        sites = sum(lm.shared_site_flags(cfg, 0, L)[0])
+        shared = (4 * d * cfg.n_heads * cfg.head_dim
+                  + 3 * d * cfg.hybrid.shared_d_ff)
+        matmul = (L * (d * (2 * di + 2 * g * n + nh) + di * d)
+                  + sites * shared + head)
+        ssd = 2 * ck * nh * (n + hd) + 4 * nh * hd * n
+        return (6 * matmul * tokens + 3 * ssd * L * tokens
+                + attn(sites) * tokens // seq)
+    matmul = L * (cfg.layer_param_count() - 2 * d) + head
+    return 6 * matmul * tokens + attn(L) * tokens // seq
 
 
 def kernel_class(name: str) -> str:
@@ -936,7 +1042,6 @@ def profile_train_step(cfg, opts, eng, seq, dev):
     gang (fresh weights from a seed; one warm step first, which allocates
     the gradient buffer): the summed durations of the step's kernels and
     copies on the card, from a profile with CUDA activity."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import pipeline as pl
     from repro_torch.core.partitioner import plan_stages
@@ -961,38 +1066,40 @@ def profile_train_step(cfg, opts, eng, seq, dev):
         step(params, state, batches[1], hp, 1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    by_class, n = {}, 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            c = kernel_class(e.name)
-            by_class[c] = by_class.get(c, 0.0) + e.time_range.elapsed_us() / 1e3
-            n += 1
-    return dict(profiled_step_ms=1e3 * wall, device_kernels=n,
+    by_class, kernels = {}, device_kernels(prof)
+    for name, _, ms in kernels:
+        c = kernel_class(name)
+        by_class[c] = by_class.get(c, 0.0) + ms
+    return dict(profiled_step_ms=1e3 * wall, device_kernels=len(kernels),
                 device_busy_ms=sum(by_class.values()),
                 busy_ms_by_class=by_class)
 
 
-def phase7(fa, dev, card):
-    from repro_torch.configs import get_config
+def selection_path(kmod, kernel_name, cfg, opts, seq, n_steps, expected_of,
+                   dev, card, profile=True):
+    """``run_model_selection`` as ``launch/train.py`` calls it on ``cfg``:
+    2 trials, 2 stages, ``n_steps`` steps at ``seq``, fp32, the planner
+    choosing the microbatch count. Asserts both trials train in one gang,
+    the kernel's launches (``kmod``, wrapper ``kernel_name``) equal
+    ``expected_of(K, M, S)``, 0 restarts and finite losses; records step
+    time, tokens/s, model FLOP/s, the kernel's share of step time (CUDA
+    events around each launch inside the steps), peak memory beside the
+    planner's estimate and, with ``profile``, a profiled step's device
+    time by kernel class (two more steps on fresh weights). Returns
+    (record, launches)."""
     from repro_torch.core import hydra
     from repro_torch.core import pipeline as pl
     from repro_torch.core.scheduler import per_chip_bytes, state_bytes
     from repro_torch.core.trials import grid_search
-    from repro_torch.models.layers import ModelOptions
     from repro_torch.obs.tracer import Tracer
 
-    # as launch/train.py --n-layers 4 --trials 2 --steps 3 --n-model 2
-    # --seq-len 2048 builds it
-    cfg = dataclasses.replace(get_config("chatglm3-6b"), n_layers=4)
-    opts = ModelOptions(remat=True, use_flash_kernel=True)
     base = pl.EngineConfig(n_trials=2, n_microbatches=4, microbatch=1,
                            n_stages=2)
-    seq, n_steps = 2048, 3
     hc = hydra.HydraConfig(seq_len=seq, steps=n_steps)
     trials = grid_search(cfg.name, [3e-3 * 0.5 ** i for i in range(2)])
 
     step_s, in_step, events = [], [False], []
-    real_make, real_kernel = pl.make_train_step, fa.flash_attention_kernel
+    real_make, real_kernel = pl.make_train_step, getattr(kmod, kernel_name)
 
     def timed_make(*a, **kw):
         fn = real_make(*a, **kw)
@@ -1018,19 +1125,21 @@ def phase7(fa, dev, card):
         return out
 
     tracer = Tracer()
-    pl.make_train_step, fa.flash_attention_kernel = timed_make, evented
+    pl.make_train_step = timed_make
+    setattr(kmod, kernel_name, evented)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(fa)  # count the training path's launches only
+    reset_counts(kmod)  # count the training path's launches only
     t0 = time.perf_counter()
     try:
         out = hydra.run_model_selection(cfg, opts, hc, trials, base,
                                         tracer=tracer, device=dev)
     finally:
-        pl.make_train_step, fa.flash_attention_kernel = real_make, real_kernel
+        pl.make_train_step = real_make
+        setattr(kmod, kernel_name, real_kernel)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa.launches
-    variants = dict(getattr(fa, "variant_launches", {}))
+    launches = kmod.launches
+    variants = dict(getattr(kmod, "variant_launches", {}))
     peak = torch.cuda.max_memory_allocated()
     gang = [e for e in tracer.events if e["ev"] == "span_begin"
             and e["name"] == "gang"]
@@ -1039,12 +1148,7 @@ def phase7(fa, dev, card):
     assert len(gang) == 1 and gang[0]["n_trials"] == 2, gang
     K, M = gang[0]["n_trials"], gang[0]["n_microbatches"]
     S, L = base.n_stages, cfg.n_layers
-    # per train step every layer's forward runs 3 times per (trial,
-    # microbatch) slot — forward, the (stage, slot) recompute (tick remat),
-    # the layer recompute (layer remat) — except that torch's checkpoint
-    # early stop skips the layer recompute of the last layer of each stage
-    # before the last; the evaluation pass runs each layer once per slot
-    expected = n_steps * K * M * (3 * L - (S - 1)) + K * M * L
+    expected = expected_of(K, M, S)
     assert launches == expected > 0, (launches, expected)
     assert [e["restarts"] for e in ends] == [0], ends
     res = out["all"]
@@ -1056,10 +1160,10 @@ def phase7(fa, dev, card):
     flops = model_flops_per_step(cfg, eng, seq)
     kernel_s = sum(s.elapsed_time(e) for s, e in events) / 1e3
     rec = dict(
-        card=card, layers=L, d_model=cfg.d_model, dtype="float32",
-        params_per_trial=cfg.param_count(), trials=K, microbatches=M,
-        stages=S, microbatch=base.microbatch, seq=seq, steps=n_steps,
-        bubble_fraction=eng.bubble_fraction, step_ms=step_ms,
+        card=card, arch=cfg.name, layers=L, d_model=cfg.d_model,
+        dtype="float32", params_per_trial=cfg.param_count(), trials=K,
+        microbatches=M, stages=S, microbatch=base.microbatch, seq=seq,
+        steps=n_steps, bubble_fraction=eng.bubble_fraction, step_ms=step_ms,
         step_ms_all=[1e3 * x for x in step_s],
         tokens_per_step=K * M * base.microbatch * seq,
         tokens_per_s=K * M * base.microbatch * seq / (step_ms / 1e3),
@@ -1079,13 +1183,39 @@ def phase7(fa, dev, card):
         results=[dict(tag=r.spec.tag, lr=r.spec.lr, train_loss=r.train_loss,
                       val_loss=r.val_loss) for r in res],
         best_trial=out["best"].spec.tag, wall_s=wall)
+    del out
     gc.collect()
     torch.cuda.empty_cache()
-    prof = profile_train_step(cfg, opts, eng, seq, dev)
-    prof["device_idle_share"] = 1.0 - prof["device_busy_ms"] / step_ms
-    rec["profile"] = prof
-    say(f"phase 7: gang plan K={K} M={M} (S={S}, bubble "
-        f"{eng.bubble_fraction:.4f})")
+    if profile:
+        prof = profile_train_step(cfg, opts, eng, seq, dev)
+        prof["device_idle_share"] = 1.0 - prof["device_busy_ms"] / step_ms
+        rec["profile"] = prof
+    return rec, launches
+
+
+def phase7(fa, dev, card):
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import kernel_options
+
+    # as launch/train.py --n-layers 4 --trials 2 --steps 3 --n-model 2
+    # --seq-len 2048 builds it
+    cfg = dataclasses.replace(get_config("chatglm3-6b"), n_layers=4)
+    L, n_steps = cfg.n_layers, 3
+
+    def expected(K, M, S):
+        # per train step every layer's forward runs 3 times per (trial,
+        # microbatch) slot — forward, the (stage, slot) recompute (tick
+        # remat), the layer recompute (layer remat) — except that torch's
+        # checkpoint early stop skips the layer recompute of the last
+        # layer of each stage before the last; the evaluation pass runs
+        # each layer once per slot
+        return n_steps * K * M * (3 * L - (S - 1)) + K * M * L
+
+    rec, launches = selection_path(fa, "flash_attention_kernel", cfg,
+                                   kernel_options(cfg, remat=True), 2048,
+                                   n_steps, expected, dev, card)
+    say(f"phase 7: gang plan K={rec['trials']} M={rec['microbatches']} "
+        f"(S={rec['stages']}, bubble {rec['bubble_fraction']:.4f})")
     say("phase 7: run_model_selection, chatglm3-6b 4 layers fp32:",
         json.dumps(rec))
     return rec, launches
@@ -1182,19 +1312,21 @@ def phase8(ms, ops, dev, flush, card):
 # ---------------------------------------------------------------------------
 
 
-def ssm_engine(cfg, dtype, dev, seed, max_seq):
-    """falcon-mamba-7b behind the dense ServeEngine as launch/serve.py
-    builds it: 2 stages, 2 slots x microbatch 2, split admission with 2
-    prefill chunks, K3 in every append."""
+def dense_engine(cfg, dtype, dev, seed, max_seq):
+    """A recurrent family (falcon-mamba-7b, zamba2-7b) behind the dense
+    ServeEngine as launch/serve.py builds it: 2 stages, 2 slots x
+    microbatch 2, split admission with 2 prefill chunks, the kernels on by
+    family (K3 in every ssm append; K1 in the hybrid shared block's
+    full-sequence prefills, which the engine's appends do not make)."""
     from repro_torch.core import pipeline as pl
     from repro_torch.core.partitioner import plan_stages
-    from repro_torch.models.layers import ModelOptions
+    from repro_torch.models.layers import kernel_options
     from repro_torch.serve import ServeEngine
 
     eng = pl.EngineConfig(n_trials=1, n_microbatches=2, microbatch=2,
                           n_stages=2, max_seq=max_seq, cache_dtype=dtype,
                           prefill_chunks=2)
-    opts = ModelOptions(compute_dtype=dtype, use_mamba_kernel=True)
+    opts = kernel_options(cfg, compute_dtype=dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = pl.init_trial_params(cfg, eng, plan_stages(cfg, eng.n_stages),
                                   gen, dtype=dtype, device=dev)
@@ -1210,7 +1342,7 @@ def phase9(ms, dev, card):
 
     cfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=2)
     max_seq = 80
-    eng, _, params, make = ssm_engine(cfg, torch.float32, dev, 9, max_seq)
+    eng, _, params, make = dense_engine(cfg, torch.float32, dev, 9, max_seq)
     rng = np.random.default_rng(9)
     shapes = [(40, 4), (70, 3), (33, 5), (64, 6), (17, 2), (50, 4), (29, 3)]
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, (p,)).astype(np.int32),
@@ -1266,7 +1398,7 @@ def phase10(ms, dev, card):
     bf16 = torch.bfloat16
     gen_len, max_seq = 32, 1024 + 32
     t0 = time.perf_counter()
-    eng, _, params, make = ssm_engine(cfg, bf16, dev, 0, max_seq)
+    eng, _, params, make = dense_engine(cfg, bf16, dev, 0, max_seq)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(4)  # phase 5's traffic
@@ -2431,7 +2563,376 @@ def phase13(fa, pa, ms, dev, card):
     return out, launches
 
 
-PHASES = tuple(range(1, 14))
+# ---------------------------------------------------------------------------
+# Phase 14: SSM training (falcon-mamba-7b, K3 in the forward)
+# ---------------------------------------------------------------------------
+
+
+def phase14(ms, dev, card):
+    """(a) Exactness: full-width falcon-mamba-7b cut to 2 layers, fp32,
+    K = 2, S = 2, 2 microbatches, seq 256, 2 steps of the pipelined train
+    step with K3 in the forward (its backward autograd of the plain scan)
+    against K sequential unpipelined runs through the chunked scan, by
+    phase 6's criteria. (b) The path: ``run_model_selection`` as
+    ``launch/train.py`` calls it on 4 full-width layers, 2 trials, 2
+    stages, seq 512 (the plain-scan backward loops over time steps), 3
+    steps, remat, K3."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import kernel_options
+
+    out = {}
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=2)
+    opts = kernel_options(cfg, remat=True)
+    assert opts.use_mamba_kernel and opts.remat
+    reset_counts(ms)
+    # a tenth of phase 6's learning rates: at phase 6's, the first Adam
+    # step (every weight moved by about lr) sends this random-weight
+    # model's gradient norm from 7 to 93, and the second update's
+    # direction then follows rounding: the plain pipeline (no kernel)
+    # misses the change limit by itself (12 % at lr 1e-3), while the
+    # first-step gradients agree within 1.3e-6 (NVIDIA H100 80GB HBM3,
+    # 700 W: scripts/train_step_sensitivity.py; PERF.md)
+    out["a"] = train_vs_sequential(cfg, opts, 256, 14, dev, card,
+                                   hp={"lr": [3e-4, 1e-4],
+                                       "wd": [0.0, 0.01]})
+    out["a"]["k3_launches"] = ms.launches
+    assert ms.launches > 0, "the train step launched no K3"
+    say("phase 14 (a): falcon-mamba-7b 2-layer fp32 train step (K3) vs "
+        "sequential runs (chunked scan):", json.dumps(out["a"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=4)
+    L, n_steps = cfg.n_layers, 3
+
+    def expected(K, M, S):
+        # one K3 launch per layer forward: per step, per (trial,
+        # microbatch) slot, the forward, the (stage, slot) recompute and
+        # the layer recompute, less the last layer of each stage before
+        # the last (torch's checkpoint early stop, as phase 7); K3's
+        # backward (autograd of the plain scan) launches none; then one
+        # evaluation pass of every layer per slot
+        return n_steps * K * M * (3 * L - (S - 1)) + K * M * L
+
+    # no profiled step: at about 17 s a step (NVIDIA H100 80GB HBM3,
+    # 700 W) the two more steps it takes cost as much as the path itself;
+    # a profile of one (``profile=True``) found the step's device time
+    # nearly all in the plain scan's backward, elementwise kernels
+    out["b"], launches = selection_path(ms, "mamba_scan_kernel", cfg,
+                                        kernel_options(cfg, remat=True), 512,
+                                        n_steps, expected, dev, card,
+                                        profile=False)
+    say("phase 14 (b): run_model_selection, falcon-mamba-7b 4 layers fp32 "
+        "(K3):", json.dumps(out["b"]))
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the hybrid family (zamba2-7b, K1 at head_dim 112)
+# ---------------------------------------------------------------------------
+
+
+def phase15_exact(fa, dev, card):
+    """(a) Exactness at full width, zamba2-7b cut to 12 layers (one shared
+    site in each of the 2 stages: layers 5 and 11), fp32: the dense engine
+    on 7 staggered requests (slots recycle; every reset row, shared strips
+    included, is zero) and static serving (K1 at head_dim 112 in each
+    prefill; prompts of 128 and of 100 tokens) equal the oracle; chunked
+    prefill (4 chunks) equals plain prefill in tokens and caches; the
+    train step (K1 fp32) equals sequential runs by phase 6's criteria."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline as pl
+    from repro_torch.models.layers import kernel_options
+    from repro_torch.models import lm
+    from repro_torch.models.layers import ModelOptions
+    from repro_torch.serve import Request, static_serve
+    from repro_torch.tree import tree_leaves
+
+    f32, max_seq = torch.float32, 136
+    cfg = dataclasses.replace(get_config("zamba2-7b"), n_layers=12)
+    sites = sum(lm.shared_site_flags(cfg, 0, cfg.n_layers)[0])
+    eng, opts, params, make = dense_engine(cfg, f32, dev, 15, max_seq)
+    assert opts.use_flash_kernel and sites == 2
+    plain = ModelOptions()
+    p1 = lm.layer_slice(params, 0)  # vocab 32000 is a multiple of 2
+    rng = np.random.default_rng(15)
+    runs = {}
+
+    def check(name, reqs, comps):
+        mism = 0
+        for r, c in zip(sorted(reqs, key=lambda r: r.rid), comps):
+            assert len(c.tokens) == r.max_new_tokens, (name, r.rid)
+            want = lm.greedy_generate(cfg, plain, p1, r.prompt,
+                                      r.max_new_tokens, max_seq, f32)
+            mism += sum(a != b for a, b in zip(c.tokens, want))
+        runs[name] = dict(requests=len(comps), mismatches=mism)
+        assert mism == 0, f"{name}: {mism} tokens differ from the oracle"
+
+    # the dense engine: phase 9's staggered shapes, slots recycled
+    shapes = [(40, 4), (70, 3), (33, 5), (64, 6), (17, 2), (50, 4), (29, 3)]
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, (p,)).astype(np.int32),
+                    g, arrival=0.5 * i) for i, (p, g) in enumerate(shapes)]
+    engine, resets = make(), []
+    reset = engine.reset_fn
+
+    def checked_reset(cache, mask):
+        cache = reset(cache, mask)
+        for k, g, b in torch.as_tensor(mask).nonzero().tolist():
+            for part in ("layers", "shared"):
+                for buf in cache[part].values():
+                    assert not buf[k, g, :, b].any(), \
+                        f"a reset row of the {part} cache is not zero"
+        resets.append(int(np.asarray(mask).sum()))
+        return cache
+
+    engine.reset_fn = checked_reset
+    check("dense_engine", reqs, engine.run([r.clone() for r in reqs]))
+    assert sum(resets) == len(reqs) > engine.batcher.n_cells  # recycled
+    runs["dense_engine"].update(calls=engine.stats.calls,
+                                reset_rows=sum(resets))
+    del engine
+    # static serving: K1 at head_dim 112 in every prefill call
+    sreqs = [Request(i, rng.integers(0, cfg.vocab_size,
+                                     (128 if i < 4 else 100,))
+                     .astype(np.int32), int(g))
+             for i, g in enumerate(rng.integers(3, 9, 8))]
+    reset_counts(fa)
+    comps, st = static_serve(cfg, eng, params, sreqs, opts, device=dev)
+    check("static_k1", sreqs, comps)
+    assert fa.launches == 2 * eng.n_slots * sites, fa.launches
+    runs["static_k1"].update(calls=st.calls, k1_launches=fa.launches)
+
+    # chunked prefill: 2 request groups of 128 tokens in 4 chunks each
+    def prefill(p_eng, toks, o):
+        cache = pl.serve_cache_struct(cfg, p_eng, device=dev)
+        step = pl.make_serve_step(cfg, o, p_eng, "prefill")
+        cache, tok, _ = step(params, cache,
+                             {"tokens": torch.from_numpy(toks).to(dev)})
+        return tree_leaves(cache), tok.cpu().numpy()
+
+    seq, nc = 128, 4
+    eng_p = dataclasses.replace(eng, max_seq=seq, prefill_chunks=1)
+    eng_c = dataclasses.replace(eng_p, n_microbatches=2 * nc,
+                                prefill_chunks=nc)
+    toks = rng.integers(0, cfg.vocab_size, (1, 2, 2, seq)).astype(np.int32)
+    chunks = np.ascontiguousarray(
+        toks.reshape(1, 2, 2, nc, seq // nc).transpose(0, 1, 3, 2, 4)
+        .reshape(1, 2 * nc, 2, seq // nc))
+    cache_p, tok_p = prefill(eng_p, toks, opts)
+    cache_c, tok_c = prefill(eng_c, chunks, opts)
+    cache_r, tok_r = prefill(eng_p, toks, plain)  # no kernel
+    diff = lambda xs, ys: max(float((x.float() - y.float()).abs().max())
+                              for x, y in zip(xs, ys))
+    runs["chunked_prefill"] = dict(
+        mismatches=int((tok_p != tok_c.reshape(1, 2, nc, 2)[:, :, -1]).sum()
+                       + (tok_p != tok_r).sum()),
+        chunked_cache_max_abs_diff=diff(cache_p, cache_c),
+        plain_cache_max_abs_diff=diff(cache_p, cache_r))
+    assert runs["chunked_prefill"]["mismatches"] == 0 \
+        and runs["chunked_prefill"]["chunked_cache_max_abs_diff"] < 5e-4 \
+        and runs["chunked_prefill"]["plain_cache_max_abs_diff"] < 5e-4, \
+        runs["chunked_prefill"]
+    del params, p1, cache_p, cache_c, cache_r
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the train step, K1 fp32 at head_dim 112
+    reset_counts(fa)
+    runs["train"] = train_vs_sequential(
+        cfg, kernel_options(cfg, remat=True), 256, 15, dev, card)
+    runs["train"]["k1_launches"] = dict(fa.variant_launches)
+    assert fa.variant_launches["fp32"] > 0, "the train step ran no K1"
+    return runs
+
+
+def phase15(fa, dev, card):
+    """The hybrid family: (a) :func:`phase15_exact`; (b) serving full
+    zamba2-7b (81 layers, 13 shared sites) in bf16 through the dense
+    engine on phase 5's grid and trace, then static serving of 8 x
+    512-token prompts with K1 at head_dim 112 in each prefill call, every
+    K1 launch of one profiled prefill call against the plain version;
+    (c) ``run_model_selection`` on 12 full-width layers, seq 2048, K1 fp32
+    at head_dim 112."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline as pl
+    from repro_torch.models.layers import kernel_options
+    from repro_torch.models import lm
+    from repro_torch.serve import Request, static_serve
+
+    out = dict(card=card)
+    marks, t_mark = {}, [time.perf_counter()]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        marks[name] = now - t_mark[0]
+        t_mark[0] = now
+
+    out["a"] = phase15_exact(fa, dev, card)
+    say("phase 15 (a): full-width 12-layer fp32 zamba2-7b dense engine, "
+        "static (K1 hd 112), chunked prefill and train step:",
+        json.dumps(out["a"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("a_exactness")
+
+    # (b) all 81 layers in bf16, phase 5's grid and traffic
+    cfg = get_config("zamba2-7b")
+    bf16 = torch.bfloat16
+    sites = sum(lm.shared_site_flags(cfg, 0, cfg.n_layers)[0])
+    gen_len, max_seq = 32, 1024 + 32
+    t0 = time.perf_counter()
+    eng, opts, params, make = dense_engine(cfg, bf16, dev, 0, max_seq)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(4)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, (int(p),))
+                    .astype(np.int32), gen_len, arrival=float(i))
+            for i, p in enumerate(rng.integers(128, 1025, 8))]
+    times = {"decode": [], "append": []}
+
+    def timed(name, step):
+        def run(params_, cache, batch):
+            t = time.perf_counter()
+            res = step(params_, cache, batch)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t)
+            return res
+        return run
+
+    engine = make()
+    engine.decode_step = timed("decode", engine.decode_step)
+    engine.append_step = timed("append", engine.append_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    comps = engine.run([r.clone() for r in reqs])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    st = engine.stats
+    shared_mb = sum(b.numel() * b.element_size()
+                    for b in engine.cache["shared"].values()) / 1e6
+    state_mb = engine.cache["layers"]["ssm"].numel() * 4 / 1e6
+    for r, c in zip(reqs, comps):
+        assert len(c.tokens) == r.max_new_tokens, (r.rid, len(c.tokens))
+    del engine
+    gc.collect()
+    mark("b_serve")
+    again = make()
+    comps2 = again.run([r.clone() for r in reqs])
+    assert [c.tokens for c in comps2] == [c.tokens for c in comps], \
+        "the same trace gave different tokens on a second run"
+    ops_per_decode, busy_ms = profile_decode_call(again, reqs[0])
+    del again
+    gc.collect()
+    mark("b_again_profile")
+    decode_ms = 1e3 * float(np.median(times["decode"]))
+    serve = dict(
+        layers=cfg.n_layers, shared_sites=sites, d_model=cfg.d_model,
+        dtype="bfloat16", params=cfg.param_count(), stages=eng.n_stages,
+        slots=eng.n_microbatches, microbatch=eng.microbatch,
+        requests=len(comps), prompt_tokens=st.prompt_tokens,
+        tokens_generated=st.tokens_generated, ticks=st.ticks,
+        calls=st.calls, decode_calls=len(times["decode"]),
+        append_calls=len(times["append"]), wall_s=wall,
+        generated_tok_per_s=st.tokens_generated / wall,
+        decode_ms_per_call=decode_ms,
+        append_ms_per_call=1e3 * float(np.median(times["append"])),
+        max_memory_allocated_gb=peak / 1e9,
+        shared_strips_mb=shared_mb, ssm_state_mb=state_mb,
+        host_ops_per_decode_call=ops_per_decode,
+        decode_device_busy_ms=busy_ms,
+        decode_device_idle_share=(None if busy_ms is None
+                                  else 1.0 - busy_ms / decode_ms),
+        param_init_s=init_s, ttft_p50_ticks=st.summary().get("ttft_p50"))
+    say("phase 15 (b): full zamba2-7b bf16 dense serving:",
+        json.dumps(serve))
+
+    # static serving of 8 x 512-token prompts: K1 (bf16, head_dim 112) in
+    # every prefill call, 13 sites a slot
+    plen = 512
+    rng = np.random.default_rng(13)
+    sreqs = [Request(i, rng.integers(0, cfg.vocab_size, (plen,))
+                     .astype(np.int32), int(g), arrival=float(i))
+             for i, g in enumerate(rng.integers(16, 33, 8))]
+    static_eng = dataclasses.replace(eng, max_seq=plen + 32,
+                                     prefill_chunks=1)
+    stimes = {}
+    restore = timed_steps(pl, stimes)
+    reset_counts(fa)
+    try:
+        t = time.perf_counter()
+        scomps, sst = static_serve(cfg, static_eng, params, sreqs, opts,
+                                   device=dev)
+        torch.cuda.synchronize()
+        swall = time.perf_counter() - t
+    finally:
+        restore()
+    k1_launches = fa.launches
+    k1_variants = dict(fa.variant_launches)
+    want = len(stimes["prefill"]) * static_eng.n_slots * sites
+    assert k1_launches == want == k1_variants["mma_bf16"] > 0, \
+        (k1_launches, want, k1_variants)
+    for r, c in zip(sreqs, scomps):
+        assert len(c.tokens) == r.max_new_tokens, (r.rid, len(c.tokens))
+    step = pl.make_serve_step(cfg, opts, static_eng, "prefill")
+    tokens = np.stack([r.prompt for r in sreqs[:4]]).reshape(1, 2, 2, plen)
+    cache = pl.serve_cache_struct(cfg, static_eng, device=dev)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    (_, tok, _), host, k1_rec = k1_call_vs_plain(
+        fa, lambda: step(params, cache, batch))
+    assert tok.cpu().numpy().reshape(-1).tolist() == \
+        [c.tokens[0] for c in scomps[:4]], "profiled prefill's tokens"
+    assert k1_rec["launches"] == static_eng.n_slots * sites
+    prefill_ms = 1e3 * float(np.median(stimes["prefill"]))
+    k1_rec.update(host_ops=host, prefill_ms_per_call=prefill_ms)
+    if k1_rec["device_busy_ms"] is not None:
+        k1_rec["idle_share"] = 1.0 - k1_rec["device_busy_ms"] / prefill_ms
+        k1_rec["k1_share_of_busy"] = (k1_rec["ms_per_launch"]
+                                      * k1_rec["launches"]
+                                      / k1_rec["device_busy_ms"])
+    static = dict(
+        wall_s=swall, generated_tok_per_s=sst.tokens_generated / swall,
+        calls=sst.calls, prefill_calls=len(stimes["prefill"]),
+        decode_calls=len(stimes["decode"]), prefill_ms_per_call=prefill_ms,
+        decode_ms_per_call=1e3 * float(np.median(stimes["decode"])),
+        tokens_generated=sst.tokens_generated, k1_launches=k1_launches,
+        k1_variant_launches=k1_variants, k1_prefill=k1_rec,
+        requests=len(sreqs), prompt_len=plen)
+    out["b"] = dict(dense=serve, static=static)
+    say("phase 15 (b): full zamba2-7b bf16 static serving (K1 hd 112):",
+        json.dumps(static))
+    del params, cache, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("b_static")
+
+    # (c) training: 12 full-width layers, seq 2048, K1 fp32 at hd 112
+    cfg = dataclasses.replace(get_config("zamba2-7b"), n_layers=12)
+    sites12, n_steps = sum(lm.shared_site_flags(cfg, 0, 12)[0]), 3
+
+    def expected(K, M, S):
+        # one K1 launch per shared-block forward, which runs inside its
+        # site's layer: per step, per (trial, microbatch) slot, each site
+        # runs in the forward, the (stage, slot) recompute and the layer
+        # recompute, less the layer recompute torch's checkpoint early
+        # stop skips (the last layer of each stage before the last: layer
+        # 5, a site); then one evaluation pass per slot
+        return n_steps * K * M * (3 * sites12 - (S - 1)) + K * M * sites12
+
+    out["c"], launches = selection_path(fa, "flash_attention_kernel", cfg,
+                                        kernel_options(cfg, remat=True),
+                                        2048, n_steps, expected, dev, card)
+    assert out["c"]["variant_launches"]["fp32"] == launches
+    say("phase 15 (c): run_model_selection, zamba2-7b 12 layers fp32 (K1 "
+        "hd 112):", json.dumps(out["c"]))
+    mark("c_train")
+    out["seconds"] = marks
+    return out, dict(k1_static_prefill=k1_launches, k1_training=launches)
+
+
+PHASES = tuple(range(1, 16))
 
 
 def write_json(path: str, res: dict) -> None:
@@ -2488,6 +2989,14 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    seconds, t_lap = {}, [time.perf_counter()]
+
+    def lap(phase):  # each phase's wall seconds, tidied up after it
+        tidy()
+        now = time.perf_counter()
+        seconds[f"phase{phase}"] = now - t_lap[0]
+        t_lap[0] = now
+
     # the flush (a 512 MiB memset, about 0.2 ms) also keeps the card busy
     # while the host enqueues the timed call, so a short kernel's time
     # holds no host gap
@@ -2496,44 +3005,56 @@ def main(argv=None) -> int:
     flush = new_flush()
     if 2 in run:
         res["phase2"] = phase2(pa, dev, flush, card)
+        lap(2)
     if 3 in run:
         res["phase3"] = phase3(fa, ops, dev, flush, card)
+        lap(3)
     del flush  # kept out of the serving and training phases' peak memory
-    if 4 in run:
-        res["phase4"] = phase4(dev)
     # phase 4's engine holds its weights in a reference cycle (the transfer
     # engine's cache callbacks): collect it, or its ~3.8 GB lingers into
     # phase 5's peak memory
+    if 4 in run:
+        res["phase4"] = phase4(dev)
+        lap(4)
     tidy()
     if 5 in run:
         res["phase5"], pa_launches = phase5(pa, dev, card)
-        tidy()
+        lap(5)
     if 6 in run:
         res["phase6"] = phase6(dev, card)
-        tidy()
+        lap(6)
     if 7 in run:
         res["phase7"], fa_launches = phase7(fa, dev, card)
-        tidy()
+        lap(7)
     if 8 in run:
         flush = new_flush()
         res["phase8"], res["phase8_grad_rel_err"] = phase8(ms, ops, dev,
                                                            flush, card)
         del flush
-        tidy()
+        lap(8)
     if 9 in run:
         res["phase9"] = phase9(ms, dev, card)
-        tidy()
+        lap(9)
     if 10 in run:
         res["phase10"], ms_launches = phase10(ms, dev, card)
-        tidy()
+        lap(10)
     if 11 in run:
         res["phase11"] = phase11(pa, dev, card)
-        tidy()
+        lap(11)
     if 12 in run:
         res["phase12"], pa_feature_launches = phase12(pa, dev, card)
-        tidy()
+        lap(12)
     if 13 in run:
         res["phase13"], p13 = phase13(fa, pa, ms, dev, card)
+        lap(13)
+    if 14 in run:
+        res["phase14"], ms_train_launches = phase14(ms, dev, card)
+        lap(14)
+    if 15 in run:
+        res["phase15"], p15 = phase15(fa, dev, card)
+        lap(15)
+    res["seconds"] = dict(build=build_s, **seconds)
+    say("phase seconds:", json.dumps(res["seconds"]))
     if run != set(PHASES):
         if args.out:
             write_json(args.out, res)
@@ -2553,7 +3074,11 @@ def main(argv=None) -> int:
                 "phase13_split_beside_static": p13["k2_split"],
                 "phase13_planned_grid": p13["k2_planned"]}
     k1_paths = {"phase7_training": fa_launches,
-                "phase13_static_prefill": p13["k1_static_prefill"]}
+                "phase13_static_prefill": p13["k1_static_prefill"],
+                "phase15_hybrid_static_prefill": p15["k1_static_prefill"],
+                "phase15_hybrid_training": p15["k1_training"]}
+    k3_paths = {"phase10_ssm_serving": ms_launches,
+                "phase14_ssm_training": ms_train_launches}
     kernels = {"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -2574,7 +3099,8 @@ def main(argv=None) -> int:
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan.py:62",
-        "launches": ms_launches, "max_abs_err": srow["max_abs_err"],
+        "launches": sum(k3_paths.values()), "launches_by_path": k3_paths,
+        "max_abs_err": srow["max_abs_err"],
         "ms": srow["ms"], "plain_ms": srow["plain_ms"],
         "bound_ms": srow["bound_ms"], "bound_by": srow["bound_by"],
         "library_ms": None}]}

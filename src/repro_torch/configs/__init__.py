@@ -10,10 +10,11 @@ from repro_torch.configs.base import (  # noqa: F401
     SSMConfig,
 )
 
-from repro_torch.configs import chatglm3_6b, falcon_mamba_7b
+from repro_torch.configs import chatglm3_6b, falcon_mamba_7b, zamba2_7b
 
 REGISTRY = {cfg.name: cfg for cfg in (chatglm3_6b.CONFIG,
-                                       falcon_mamba_7b.CONFIG)}
+                                       falcon_mamba_7b.CONFIG,
+                                       zamba2_7b.CONFIG)}
 
 
 def get_config(name: str) -> ArchConfig:

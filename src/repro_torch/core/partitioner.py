@@ -22,6 +22,9 @@ class StagePlan:
     layers_per_stage: int  # local (padded) layer count L_s
     padded_layers: int     # n_stages * layers_per_stage
 
+    def layer_offset(self, stage: int) -> int:
+        return stage * self.layers_per_stage
+
 
 def plan_stages(cfg: ArchConfig, n_stages: int) -> StagePlan:
     if n_stages < 1:

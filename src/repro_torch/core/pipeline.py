@@ -262,9 +262,14 @@ def _train_loss(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
             x = plain_embed(cfg, eng, p["embed"], tokens[k, m],
                             opts.compute_dtype)
         lo = s * l_s
+        # a hybrid trial's one shared block serves every stage's sites: its
+        # gradients from all stages add up in the one backward() (the
+        # reference's psum over the stage axis)
         x, _ = lm.stack_apply(
             cfg, opts, p["layers"][lo:lo + l_s], x, pos=pos, mode="train",
-            layer_mask=[lo + i < cfg.n_layers for i in range(l_s)])
+            shared_params=p.get("shared"),
+            layer_mask=[lo + i < cfg.n_layers for i in range(l_s)],
+            layer_offset=lo)
         if s == S - 1:
             return loss_fn(cfg, eng, p["final_norm"], p["head"], x,
                            labels[k, m])
@@ -383,8 +388,18 @@ def make_train_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+
+
+def shared_slots_per_stage(cfg: ArchConfig, plan: StagePlan) -> int:
+    """Shared-attention site slots per stage (hybrid archs): the most any
+    stage holds (at least 1), so every stage's strips have one shape."""
+    if cfg.hybrid is None:
+        return 0
+    return max(lm.n_shared_sites(cfg, plan.layer_offset(s),
+                                 plan.layers_per_stage)
+               for s in range(plan.n_stages))
 
 
 def _check_paged_support(cfg: ArchConfig, eng: EngineConfig) -> None:
@@ -404,8 +419,11 @@ def serve_cache_struct(cfg: ArchConfig, eng: EngineConfig, device=None):
 
     Dense layout: layer leaves (K, cache_groups, Lp, mb_global, ...) — one
     strip per (trial, slot group, layer, row): K/V (max_seq, h_kv, hd) for
-    the attention family, the fp32 SSM state (di, n) and the conv window
-    (d_conv-1, di) for the ssm family. Paged layout (``eng.paged``): one
+    the attention family, the fp32 SSM state and the conv window for the
+    ssm and hybrid families; the hybrid family adds shared-site leaves
+    (K, cache_groups, S · slots, mb_global, seq, h_kv, hd), stage ``s``
+    owning sites ``[s · slots, (s + 1) · slots)`` (``seq`` is
+    ``min(max_seq, window)`` under ``eng.window``). Paged layout (``eng.paged``): one
     pool per (trial, layer), shared by every slot cell — leaves (K, Lp,
     n_blocks, block_size, h_kv, hd); data shard ``i`` owns blocks
     ``[i·n_blocks/dp, (i+1)·n_blocks/dp)``."""
@@ -422,9 +440,17 @@ def serve_cache_struct(cfg: ArchConfig, eng: EngineConfig, device=None):
     one = B.layer_cache_shape(cfg, eng.mb_global, eng.max_seq,
                               eng.cache_dtype)
     lead = (eng.n_trials, eng.cache_groups, plan.padded_layers)
+    shared = None
+    if cfg.hybrid is not None:
+        s_lead = (eng.n_trials, eng.cache_groups,
+                  eng.n_stages * shared_slots_per_stage(cfg, plan))
+        shared = {n: torch.zeros(s_lead + shape, dtype=dt, device=device)
+                  for n, (shape, dt) in B.shared_cache_shape(
+                      cfg, eng.mb_global, eng.max_seq, eng.cache_dtype,
+                      eng.window).items()}
     return {"layers": {n: torch.zeros(lead + shape, dtype=dt, device=device)
                        for n, (shape, dt) in one.items()},
-            "shared": None}
+            "shared": shared}
 
 
 def global_block_tables(eng: EngineConfig, tables):
@@ -505,6 +531,7 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
         stack_mode = "append"
     tables = (global_block_tables(eng, batch["block_tables"]) if eng.paged
               else None)
+    n_sh = shared_slots_per_stage(cfg, plan)
     mbg, qlen = tokens.shape[-2], tokens.shape[-1]
     dev = tokens.device
     steps = torch.arange(qlen, device=dev)
@@ -530,7 +557,9 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
             cell = (k,) if eng.paged else (k, m // nc)
             c = {"layers": {n: v[cell][lo:lo + l_s]
                             for n, v in cache["layers"].items()},
-                 "shared": None}
+                 "shared": None if cache["shared"] is None else
+                 {n: v[cell][s * n_sh:(s + 1) * n_sh]
+                  for n, v in cache["shared"].items()}}
             if mode == "prefill":
                 # chunk m % nc of its request group (always 0 when nc = 1)
                 start = torch.full((mbg,), (m % nc) * qlen, dtype=torch.int32,
@@ -547,7 +576,9 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
                                     [:, None])
             y, _ = lm.stack_apply(
                 cfg, opts, p_layers, x, pos=pos, mode=stack_mode, cache=c,
+                shared_params=trials[k].get("shared"),
                 layer_mask=[lo + i < cfg.n_layers for i in range(l_s)],
+                layer_offset=lo,
                 kv_offset=None if stack_mode == "prefill" else start,
                 window=eng.window,
                 block_tables=None if tables is None else tables[k, m],
@@ -630,8 +661,11 @@ def make_slot_reset(cfg: ArchConfig, eng: EngineConfig) -> Callable:
 
     def reset(cache, mask):
         rows = torch.as_tensor(mask).nonzero().tolist()
-        for buf in cache["layers"].values():
-            for k, g, b in rows:  # leaves (K, G, Lp, mbg, ...)
+        bufs = list(cache["layers"].values())
+        if cache["shared"] is not None:  # the hybrid shared-site strips
+            bufs += list(cache["shared"].values())
+        for buf in bufs:
+            for k, g, b in rows:  # leaves (K, G, Lp | sites, mbg, ...)
                 buf[k, g, :, b].zero_()
         return cache
 

@@ -115,21 +115,30 @@ def kv_token_bytes_per_chip(cfg: ArchConfig, eng: EngineConfig) -> int:
 
 def _cache_bytes_per_chip(cfg: ArchConfig, eng: EngineConfig,
                           seq_len: int) -> int:
-    if cfg.family == "hybrid":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     if eng.paged:
         # the persistent cache is the block pool, not slots × max_seq strips
         local_blocks = eng.n_blocks // max(eng.data_size, 1)
         return (local_blocks * eng.block_size
                 * kv_token_bytes_per_chip(cfg, eng))
     b_local = eng.microbatch * eng.n_microbatches
-    if cfg.family == "ssm":
-        # O(1) per row: the fp32 state and the conv window, whatever seq_len
+    if cfg.family in ("ssm", "hybrid"):
+        # O(1) per row: the fp32 state and the conv window, whatever
+        # seq_len; hybrid archs add the shared-site K/V strips. The
+        # reference's formula, kept so plans agree field by field: it
+        # counts ONE shared site per stage (a stage of full zamba2-7b at
+        # S = 2 holds 7) and ``di``, not the Mamba2 conv's di + 2·g·n, as
+        # the conv width (ROADMAP Queue 3)
         s = cfg.ssm
         di = s.d_inner(cfg.d_model)
+        itemsize = eng.cache_dtype.itemsize
         per_layer = b_local * di * s.d_state * 4
-        per_layer += b_local * (s.d_conv - 1) * di * eng.cache_dtype.itemsize
-        return per_layer * plan_stages(cfg, eng.n_stages).layers_per_stage
+        per_layer += b_local * (s.d_conv - 1) * di * itemsize
+        total = per_layer * plan_stages(cfg, eng.n_stages).layers_per_stage
+        if cfg.hybrid is not None:
+            w = min(seq_len, eng.window) if eng.window else seq_len
+            total += (b_local * w * cfg.n_kv_heads * cfg.head_dim * 2
+                      * itemsize)
+        return total
     return b_local * seq_len * kv_token_bytes_per_chip(cfg, eng)
 
 

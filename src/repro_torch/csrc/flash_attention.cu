@@ -37,7 +37,9 @@
 // fp32: CUDA cores (67 TFLOP/s), because the reference's 2e-5 tolerance
 // rules out TF32. 256 threads as 16 x 16 own 64 query rows: each thread
 // scores 4 rows x 4 keys (keys tx + 16 j) with 16-byte shared-memory reads
-// and accumulates 4 rows x hd / 16 output columns. Q, K tiles have rows
+// and accumulates 4 rows x hd / 16 output columns: 16-byte groups when hd
+// is a multiple of 64, else single columns tx + 16 c (zamba2-7b's head
+// dim 112: 7 columns a thread). Q, K tiles have rows
 // padded to hd + 4 floats so those reads hit distinct banks; P is stored
 // transposed over the consumed K tile. About 100 KB of shared memory, so
 // two blocks share an SM and one's barriers hide behind the other's FMAs;
@@ -219,9 +221,11 @@ flash_attention_fp32_kernel(const float* __restrict__ q,
                             float scale) {
   using Lay = Layout<HD>;
   constexpr int kStride = Lay::kStride;
-  // output columns per thread: 16-byte groups (tx * 4 + 64 * c) when
-  // hd >= 64, else single columns (tx + 16 * c); both conflict-free
-  constexpr bool kVecCols = HD >= 64;
+  // output columns per thread: 16-byte groups (tx * 4 + 64 * (c / 4))
+  // when hd is a multiple of 64, else single columns (tx + 16 * c); both
+  // conflict-free
+  static_assert(HD % 16 == 0, "16 column lanes");
+  constexpr bool kVecCols = HD % 64 == 0;
   constexpr int kCols = HD / 16;
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);  // (kBQ, kStride)
@@ -432,6 +436,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     case 16: FLASH_ATTENTION_LAUNCH(16);
     case 32: FLASH_ATTENTION_LAUNCH(32);
     case 64: FLASH_ATTENTION_LAUNCH(64);
+    case 112: FLASH_ATTENTION_LAUNCH(112);
     case 128: FLASH_ATTENTION_LAUNCH(128);
   }
 #undef FLASH_ATTENTION_LAUNCH

@@ -40,7 +40,7 @@ from repro_torch.kernels import build as kbuild
 from repro_torch.models.layers import attention_reference
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128)  # compiled for each
+HEAD_DIMS = (16, 32, 64, 112, 128)  # compiled for each (112: zamba2-7b)
 
 # kernel launches since the caller last set this to 0 (one per launch, and
 # nowhere else): chip_smoke.py reads it to show the train path ran the

@@ -24,6 +24,9 @@ or the paged KV pool, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
         --n-model 2 --slots 2 --microbatch 2 --n-requests 8 --rate 1.0 \\
         --prompt-len 1024 --gen-len 32 --dtype bfloat16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+        --n-model 2 --slots 2 --microbatch 2 --n-requests 8 --rate 1.0 \\
+        --prompt-len 1024 --gen-len 32 --dtype bfloat16
 
     # the lockstep static baseline (uniform prompts; the prefill runs the
     # flash-attention kernel), sliding-window serving, a capacity-planned
@@ -45,6 +48,8 @@ or the paged KV pool, on the card by default.
         --overcommit 1.5 --host-blocks 8 --n-model 2 --slots 2 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
         --smoke --n-model 2 --slots 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+        --smoke --n-model 2 --slots 2 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \\
         --smoke --static --n-model 2 --slots 2 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \\
@@ -59,12 +64,14 @@ adds a drafter row per target row, with weights of its own.
 on the card's memory (``--max-slots``, ``--expected-seq``,
 ``--expected-hit-rate``) and prints the plan; with explicit ``--slots``,
 ``--n-blocks 0`` backs every cell at ``max_seq``. The launcher turns the
-kernels on by family, as the train launcher sets ``use_flash_kernel``:
-for the attention family every full-sequence prefill (``--static``) goes
-through ``kernels.ops.flash_attention``, for the ssm family
-(falcon-mamba-7b, dense only) every prefill / append scan through
-``kernels.ops.mamba_scan``; each runs its CUDA kernel on the card and its
-plain PyTorch version on the CPU.
+kernels on by family, as the train launcher does: for the attention
+family and the hybrid family's shared block (zamba2-7b, dense only; head
+dim 112) every full-sequence prefill (``--static``) goes through
+``kernels.ops.flash_attention``, for the ssm family (falcon-mamba-7b,
+dense only) every prefill / append scan through ``kernels.ops.mamba_scan``;
+each runs its CUDA kernel on the card and its plain PyTorch version on the
+CPU. (The hybrid backbone's Mamba2 mixer is plain PyTorch, as the
+reference's is plain jnp.)
 """
 from __future__ import annotations
 
@@ -82,7 +89,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.launch.mesh import resolve_device
-from repro_torch.models.layers import ModelOptions
+from repro_torch.models.layers import kernel_options
 from repro_torch.obs import (Tracer, report, write_events, write_metrics,
                              write_perfetto)
 from repro_torch.serve import (POLICIES, Request, ServeEngine, blocks_for,
@@ -387,10 +394,8 @@ def main(argv=None):
         # drafter rows follow the target rows: target k drafts on row K + k
         spec_pairs = {k: args.arches + k for k in range(args.arches)}
         eng = dataclasses.replace(eng, n_trials=2 * args.arches)
-    opts = ModelOptions(compute_dtype=dtype,
-                        use_flash_kernel=cfg.family == "dense",
-                        use_mamba_kernel=cfg.family == "ssm",
-                        use_paged_kernel=args.paged_kernel)
+    opts = kernel_options(cfg, compute_dtype=dtype,
+                          use_paged_kernel=args.paged_kernel)
     requests = make_requests(args, cfg, eng, weights, max_seq)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = pl.init_trial_params(cfg, eng, plan_stages(cfg, eng.n_stages),

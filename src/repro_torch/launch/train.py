@@ -5,17 +5,28 @@ by default.
     PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \\
         --trials 2 --steps 3 --n-model 2 --seq-len 2048 --n-layers 4
 
-    # CPU smoke run (plain PyTorch attention, reduced config)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
+        --trials 2 --steps 3 --n-model 2 --seq-len 512 --n-layers 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
+        --trials 2 --steps 3 --n-model 2 --seq-len 2048 --n-layers 12
+
+    # CPU smoke runs (plain PyTorch versions of the kernels, reduced config)
     PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \\
         --smoke --trials 2 --steps 4 --n-data 2 --n-model 2 \\
         --n-microbatches 2 --seq-len 16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
+        --smoke --trials 2 --steps 2 --n-model 2 --n-microbatches 2 \\
+        --seq-len 16 --device cpu
 
-Attention runs through the flash kernel (``use_flash_kernel=True``, the
-reference's TPU-target setting): the CUDA kernel on a card, its plain
-version on the CPU. ``--n-model`` stages and ``--n-data`` shards run as
-structure inside one process. Weights are random, drawn from the run's
-seed. ``--n-layers`` cuts the depth (full-width chatglm3-6b at full depth
-needs 100 GB of fp32 state per trial; one H100 has 80 GB).
+The kernels are on by family (``models.layers.kernel_options``), as in
+the serve launcher: attention — the dense family's, and the hybrid family's shared
+block — through the flash kernel (``use_flash_kernel``), the ssm family's
+selective scans through K3 (``use_mamba_kernel``; its backward is autograd
+of the plain scan, as the reference's); each the CUDA kernel on a card,
+its plain version on the CPU. ``--n-model`` stages and ``--n-data`` shards
+run as structure inside one process. Weights are random, drawn from the
+run's seed. ``--n-layers`` cuts the depth (full-width chatglm3-6b at full
+depth needs 100 GB of fp32 state per trial; one H100 has 80 GB).
 """
 from __future__ import annotations
 
@@ -29,7 +40,7 @@ from repro_torch.core import pipeline as pl
 from repro_torch.core.hydra import HydraConfig, run_model_selection
 from repro_torch.core.trials import SuccessiveHalving, grid_search
 from repro_torch.launch.mesh import resolve_device
-from repro_torch.models.layers import ModelOptions
+from repro_torch.models.layers import kernel_options
 
 
 def main(argv=None):
@@ -64,7 +75,7 @@ def main(argv=None):
         cfg = cfg.reduced()
     if args.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
-    opts = ModelOptions(remat=True, use_flash_kernel=True)
+    opts = kernel_options(cfg, remat=True)
     eng = pl.EngineConfig(
         n_trials=args.trials, n_microbatches=args.n_microbatches,
         microbatch=args.microbatch, n_stages=args.n_model,

@@ -1,9 +1,11 @@
-"""Attention and Mamba1 blocks and the KV-cache ops in PyTorch.
+"""Attention, Mamba1 and hybrid blocks and the KV-cache ops in PyTorch.
 
-Port of ``repro/models/blocks.py`` for the dense attention family and the
-Mamba1 (``ssm``) family. A block is one layer — pre-norm attention +
-pre-norm FFN with residuals, or pre-norm Mamba1 mixer with a residual —
-called as
+Port of ``repro/models/blocks.py`` for the dense attention family, the
+Mamba1 (``ssm``) family and the Zamba2 ``hybrid`` family (a Mamba2
+backbone plus one shared attention block applied at every
+``attn_every``-th layer). A block is one layer — pre-norm attention +
+pre-norm FFN with residuals, or a pre-norm Mamba1 / Mamba2 mixer with a
+residual — called as
 
     y, cache = block_fn(cfg, opts, p, x, pos=..., cache=..., mode=...)
 
@@ -244,34 +246,66 @@ def _masked_copy(dst, src, write_mask):
     dst.copy_(src)
 
 
-def ssm_block(cfg, opts, p, x, *, pos, cache=None, kv_offset=None,
-              mode="train", window: int = 0, block_tables=None,
-              write_mask=None, q_lens=None):
-    """Mamba1 block (falcon-mamba): norm -> mamba -> residual. The cache
-    {'ssm' (b, di, n) fp32, 'conv' (b, d_conv-1, di)} is read as the
-    incoming state and overwritten in place with the new one on the rows
-    ``write_mask`` allows. (``pos`` / ``kv_offset`` / ``window`` /
-    ``block_tables`` / ``q_lens`` are accepted for signature uniformity:
-    the recurrent state is O(1) per row, not positional, and never paged;
-    ragged waves are attention-family only.)"""
+def _recurrent_block(mix, cfg, opts, p, x, cache, write_mask):
+    """norm -> ``mix`` (a Mamba mixer) -> residual; the cache {'ssm',
+    'conv'} is read as the incoming state and overwritten in place with
+    the new one on the rows ``write_mask`` allows."""
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
     ssm_s = cache["ssm"] if cache is not None else None
     conv_s = cache["conv"] if cache is not None else None
-    y, new_ssm, new_conv = L.mamba1_mix(p["mamba"], h, cfg, ssm_s, conv_s,
-                                        opts)
+    y, new_ssm, new_conv = mix(p["mamba"], h, cfg, ssm_s, conv_s, opts)
     if cache is not None:
         _masked_copy(cache["ssm"], new_ssm, write_mask)
         _masked_copy(cache["conv"], new_conv, write_mask)
     return x + y, cache
 
 
-BLOCK_FNS = {"dense": dense_block, "ssm": ssm_block}
+def ssm_block(cfg, opts, p, x, *, pos, cache=None, kv_offset=None,
+              mode="train", window: int = 0, block_tables=None,
+              write_mask=None, q_lens=None):
+    """Mamba1 block (falcon-mamba), cache {'ssm' (b, di, n) fp32, 'conv'
+    (b, d_conv-1, di)}. (``pos`` / ``kv_offset`` / ``window`` /
+    ``block_tables`` / ``q_lens`` are accepted for signature uniformity:
+    the recurrent state is O(1) per row, not positional, and never paged;
+    ragged waves are attention-family only.)"""
+    return _recurrent_block(L.mamba1_mix, cfg, opts, p, x, cache,
+                            write_mask)
+
+
+def hybrid_backbone_block(cfg, opts, p, x, *, pos, cache=None,
+                          kv_offset=None, mode="train", window: int = 0,
+                          block_tables=None, write_mask=None, q_lens=None):
+    """Zamba2 backbone layer: the Mamba2 mixer, cache {'ssm' (b, nh, hd,
+    n) fp32, 'conv' (b, d_conv-1, di + 2·g·n)}; the other keywords as
+    :func:`ssm_block`'s."""
+    return _recurrent_block(L.mamba2_mix, cfg, opts, p, x, cache,
+                            write_mask)
+
+
+def shared_attn_block(cfg, opts, p, x, *, pos, cache=None, kv_offset=None,
+                      mode="train", window: int = 0, write_mask=None):
+    """Zamba2's shared attention + SwiGLU MLP block (one set of weights
+    for every site). ``cache`` is one site's dense K/V strips {'k', 'v'}
+    (b, seq, h_kv, hd), updated in place on the rows ``write_mask``
+    allows (the reference's ``put_cache`` row mask)."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    a, cache = attn_apply(cfg, opts, p["attn"], h, pos=pos, cache=cache,
+                          kv_offset=kv_offset, mode=mode, window=window,
+                          write_mask=write_mask)
+    x = x + a
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.mlp_apply(p["mlp"], h, "swiglu"), cache
+
+
+BLOCK_FNS = {"dense": dense_block, "ssm": ssm_block,
+             "hybrid": hybrid_backbone_block}
 
 
 def block_fn_for(cfg: ArchConfig):
     if cfg.family not in BLOCK_FNS:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense and ssm only)")
+            f"family {cfg.family!r} is not ported yet (dense, ssm and "
+            f"hybrid only)")
     return BLOCK_FNS[cfg.family]
 
 
@@ -283,12 +317,31 @@ def block_fn_for(cfg: ArchConfig):
 def layer_cache_shape(cfg: ArchConfig, batch: int, max_seq: int,
                       cache_dtype=torch.bfloat16) -> dict:
     """(shape, dtype) for ONE layer's dense cache (no leading layer dim).
-    The ``ssm`` family keeps its recurrent state in fp32 whatever the cache
-    dtype, and its conv window in the cache dtype."""
+    The ``ssm`` and ``hybrid`` families keep their recurrent state in fp32
+    whatever the cache dtype, and their conv window in the cache dtype."""
     if cfg.family == "ssm":
         s = cfg.ssm
         di = s.d_inner(cfg.d_model)
         return {"ssm": ((batch, di, s.d_state), torch.float32),
                 "conv": ((batch, s.d_conv - 1, di), cache_dtype)}
+    if cfg.family == "hybrid":
+        s = cfg.ssm
+        di = s.d_inner(cfg.d_model)
+        nh = s.n_ssm_heads(cfg.d_model)
+        conv_dim = di + 2 * s.n_groups * s.d_state
+        return {"ssm": ((batch, nh, s.head_dim, s.d_state), torch.float32),
+                "conv": ((batch, s.d_conv - 1, conv_dim), cache_dtype)}
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": (shape, cache_dtype), "v": (shape, cache_dtype)}
+
+
+def shared_cache_shape(cfg: ArchConfig, batch: int, max_seq: int,
+                       cache_dtype=torch.bfloat16, window: int = 0):
+    """(shape, dtype) for ONE shared-attention site's K/V strips (hybrid
+    archs; None otherwise). ``window`` > 0 bounds the strips to the
+    sliding window (a ring buffer in decode)."""
+    if cfg.hybrid is None:
+        return None
+    seq = min(max_seq, window) if window > 0 else max_seq
+    shape = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
     return {"k": (shape, cache_dtype), "v": (shape, cache_dtype)}

@@ -1,9 +1,10 @@
-"""Core layers in PyTorch: RMS/layer norm, rotary embeddings (1d /
-2d-half), GQA attention (flash kernel / chunked online-softmax / direct),
-the SwiGLU/GELU MLP and the Mamba1 selective-scan mixer.
+"""Core layers in PyTorch: RMS/layer norm (and Mamba2's gated RMS norm),
+rotary embeddings (1d / 2d-half), GQA attention (flash kernel / chunked
+online-softmax / direct), the SwiGLU/GELU MLP, the Mamba1 selective-scan
+mixer and the Mamba2 (SSD) mixer.
 
-Port of ``repro/models/layers.py`` (attention family and Mamba1 — MoE,
-Mamba2 and M-RoPE wait for their slices). Functions keep the reference's
+Port of ``repro/models/layers.py`` (attention family, Mamba1 and Mamba2 —
+MoE and M-RoPE wait for their slices). Functions keep the reference's
 tensor layouts (``(b, s, h, hd)`` activations, ``(d, f)`` weights) so the
 tests compare like with like. Everything is a plain function on tensors;
 the pipeline engine stacks layers along a leading axis exactly as the
@@ -42,6 +43,15 @@ class ModelOptions:
     # each row's full logical K/V view
 
 
+def kernel_options(cfg: ArchConfig, **kw) -> ModelOptions:
+    """Options with the kernel of ``cfg``'s family's path on — K1
+    (``use_flash_kernel``) for the dense family's attention and the hybrid
+    family's shared block, K3 (``use_mamba_kernel``) for the ssm family's
+    scans — and ``kw`` (the launchers' choice)."""
+    return ModelOptions(use_flash_kernel=cfg.family in ("dense", "hybrid"),
+                        use_mamba_kernel=cfg.family == "ssm", **kw)
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -60,6 +70,11 @@ def layer_norm(x, w, b, eps: float = 1e-5):
     mu = x32.mean(dim=-1, keepdim=True)
     var = x32.var(dim=-1, keepdim=True, unbiased=False)
     return ((x32 - mu) * torch.rsqrt(var + eps)).to(dt) * w + b
+
+
+def gated_rms_norm(x, gate, w, eps: float = 1e-5):
+    """Mamba2 output norm: RMSNorm(x * silu(gate))."""
+    return rms_norm(x * F.silu(gate), w, eps)
 
 
 # ---------------------------------------------------------------------------
@@ -371,4 +386,113 @@ def mamba1_mix(p, x, cfg: ArchConfig, ssm_state=None, conv_state=None,
 
     y = (y + xin.float() * p["D"]).to(x.dtype)
     y = y * F.silu(z)
+    return y @ p["out_proj"], new_state, new_conv
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD, chunked)
+# ---------------------------------------------------------------------------
+
+
+def _ssd_chunk(h_enter, da_k, xh_k, bm_k, cm_k, dt_k, v_k):
+    """One chunk of the state-space dual form: h_enter (b, nh, hd, n) fp32;
+    da / dt (b, ck, nh), xh (b, ck, nh, hd), bm / cm (b, ck, nh, n), all
+    fp32; v_k (ck,) marks the real (unpadded) steps. Returns (h_exit,
+    y (b, ck, nh, hd))."""
+    ck = da_k.shape[1]
+    # padded steps: no decay (log-decay 0), no input (x already 0)
+    da_k = torch.where(v_k[None, :, None], da_k, torch.zeros_like(da_k))
+    cum = torch.cumsum(da_k, dim=1)  # (b, ck, nh), inclusive
+    # pairwise decay L[t,u] = exp(cum_t - cum_u) for u <= t (exp <= 1)
+    diff = cum[:, :, None, :] - cum[:, None, :, :]  # (b, ck, ck, nh)
+    tri = torch.tril(torch.ones((ck, ck), dtype=torch.bool,
+                                device=da_k.device))[None, :, :, None]
+    decay = torch.where(tri, torch.exp(torch.clamp(diff, max=0.0)),
+                        torch.zeros_like(diff))
+    # intra-chunk: scores[t,u] = (C_t·B_u) L[t,u] dt_u
+    gb = torch.einsum("bthn,buhn->btuh", cm_k, bm_k)
+    scores = gb * decay * dt_k[:, None, :, :]
+    y_intra = torch.einsum("btuh,buhe->bthe", scores, xh_k)
+    # inter-chunk: decay the state entering the chunk to each position
+    y_inter = torch.einsum("bthn,bhen->bthe",
+                           cm_k * torch.exp(cum)[..., None], h_enter)
+    # state at the chunk's end
+    wexit = torch.exp(cum[:, -1:, :] - cum) * dt_k  # (b, ck, nh)
+    h_in = torch.einsum("buh,buhe,buhn->bhen", wexit, xh_k, bm_k)
+    h_exit = torch.exp(cum[:, -1])[:, :, None, None] * h_enter + h_in
+    return h_exit, y_intra + y_inter
+
+
+def mamba2_mix(p, x, cfg: ArchConfig, ssm_state=None, conv_state=None,
+               opts: ModelOptions | None = None):
+    """Mamba2 (SSD) mixer, chunked "state-space dual" form. x (b, s, d).
+
+    Scalar-per-head log-decay ``da``; state (b, nh, hd, n) fp32. Decode
+    (s == 1): one recurrent step against (conv_state, ssm_state). Otherwise
+    the sequence is padded to a multiple of the chunk size and each chunk
+    takes the attention-like form (C Bᵀ ⊙ L) X with the stable pairwise
+    decay L[t,u] = exp(min(cum_t − cum_u, 0)) (t ≥ u); padded steps are
+    masked to log-decay 0 and the state is carried across chunks with
+    per-chunk decay. Each chunk is a ``torch.utils.checkpoint`` when
+    autograd records (the reference's ``jax.checkpoint`` on
+    ``chunk_body``), so the (b, ck, ck, nh) intermediates stay transient
+    in training. Pure tensor code, as in the reference (no kernel: K3's
+    layout is Mamba1's). Returns (y, new_ssm_state, new_conv_state); the
+    caller writes the states back.
+    """
+    s_cfg = cfg.ssm
+    b, s, d = x.shape
+    di = s_cfg.d_inner(cfg.d_model)
+    n, g = s_cfg.d_state, s_cfg.n_groups
+    hd = s_cfg.head_dim
+    nh = di // hd
+    z, xbc, dt_in = (x @ p["in_proj"]).split([di, di + 2 * g * n, nh],
+                                             dim=-1)
+    xbc, new_conv = _causal_conv1d(xbc, p["conv_w"], p["conv_b"], conv_state)
+    xbc = F.silu(xbc)
+    xin, bmat, cmat = xbc.split([di, g * n, g * n], dim=-1)
+    dt = F.softplus(dt_in.float() + p["dt_bias"])  # (b, s, nh)
+    a = -torch.exp(p["A_log"].float())  # (nh,)
+    xh = xin.reshape(b, s, nh, hd)
+    rep = nh // g
+    bm = bmat.reshape(b, s, g, n).repeat_interleave(rep, dim=2)  # (b,s,nh,n)
+    cm = cmat.reshape(b, s, g, n).repeat_interleave(rep, dim=2)
+    da = dt * a  # (b, s, nh) log-decay per step (<= 0)
+
+    if ssm_state is None:
+        ssm_state = torch.zeros((b, nh, hd, n), dtype=torch.float32,
+                                device=x.device)
+
+    if s == 1:
+        dbx = (dt[:, 0, :, None, None] * xh[:, 0, :, :, None].float()
+               * bm[:, 0, :, None, :].float())  # (b, nh, hd, n)
+        new_state = (torch.exp(da[:, 0])[:, :, None, None] * ssm_state
+                     + dbx)
+        y = torch.einsum("bhen,bhn->bhe", new_state,
+                         cm[:, 0].float()).reshape(b, 1, di)
+    else:
+        ck = min(s_cfg.chunk_size, s)
+        s_p = -(-s // ck) * ck
+        pad = s_p - s
+        da_p = F.pad(da, (0, 0, 0, pad))
+        dt_p = F.pad(dt, (0, 0, 0, pad))
+        xh_p, bm_p, cm_p = (F.pad(t.float(), (0, 0, 0, 0, 0, pad))
+                            for t in (xh, bm, cm))
+        valid = torch.arange(s_p, device=x.device) < s
+        record = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *p.values()))
+        h, ys = ssm_state.float(), []
+        for c0 in range(0, s_p, ck):
+            args = (h,) + tuple(t[:, c0:c0 + ck] for t in (
+                da_p, xh_p, bm_p, cm_p, dt_p)) + (valid[c0:c0 + ck],)
+            h, y_c = (checkpoint(_ssd_chunk, *args, use_reentrant=False,
+                                 preserve_rng_state=False)
+                      if record else _ssd_chunk(*args))
+            ys.append(y_c)
+        new_state = h
+        y = torch.cat(ys, dim=1)[:, :s].reshape(b, s, di)
+
+    y = (y + xh.reshape(b, s, di).float()
+         * p["D"].repeat_interleave(hd)).to(x.dtype)
+    y = gated_rms_norm(y, z, p["norm_w"], cfg.norm_eps)
     return y @ p["out_proj"], new_state, new_conv

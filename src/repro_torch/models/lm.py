@@ -1,14 +1,16 @@
 """Stacked-layer language model in PyTorch: init, forward, loss, greedy
 oracle.
 
-Port of ``repro/models/lm.py`` (dense and ssm families). As in the
-reference, every layer leaf carries a leading layer axis so the pipeline
-engine can run a contiguous slice of layers per stage through the same
-:func:`stack_apply`, with a per-layer validity mask for stage-padded
-stacks. Parameters are nested dicts of tensors in the reference's layouts;
-:func:`params_from_numpy` carries a JAX parameter pytree (as numpy arrays)
-across unchanged, which is how the tests hold the port against the
-reference on the same weights.
+Port of ``repro/models/lm.py`` (dense, ssm and hybrid families). As in
+the reference, every layer leaf carries a leading layer axis so the
+pipeline engine can run a contiguous slice of layers per stage through the
+same :func:`stack_apply`, with a per-layer validity mask for stage-padded
+stacks and, for hybrid archs, per-layer shared-attention site flags.
+Parameters are nested dicts of tensors in the reference's layouts (the
+hybrid family's shared block under ``"shared"``); :func:`params_from_numpy`
+carries a JAX parameter pytree (as numpy arrays) across unchanged, which
+is how the tests hold the port against the reference on the same
+weights.
 """
 from __future__ import annotations
 
@@ -71,44 +73,99 @@ def _ssm_layers(cfg: ArchConfig, nl: int, nrm, ones, gen, dtype, device):
     }
 
 
+def _hybrid_layers(cfg: ArchConfig, nl: int, nrm, ones, gen, dtype, device):
+    """Mamba2 backbone layer leaves (leading ``nl`` axis), as the
+    reference's ``init_layer_params``: per-head ``dt_bias`` (softplus^-1 of
+    dt drawn log-uniform in [1e-3, 1e-1]), ``A_log = log(1..nh)``, ``D =
+    1``, all three fp32 whatever ``dtype``."""
+    s, d = cfg.ssm, cfg.d_model
+    di, n, g = s.d_inner(d), s.d_state, s.n_groups
+    nh = s.n_ssm_heads(d)
+    conv_dim = di + 2 * g * n
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    dt = torch.exp(torch.rand((nl, nh), generator=gen, device=device)
+                   * (hi - lo) + lo)
+    a_log = torch.log(torch.arange(1, nh + 1, dtype=torch.float32,
+                                   device=device))
+    return {
+        "ln": ones(nl, d),
+        "mamba": {
+            "in_proj": nrm((nl, d, 2 * di + 2 * g * n + nh), d),
+            "conv_w": nrm((nl, conv_dim, s.d_conv), s.d_conv),
+            "conv_b": torch.zeros((nl, conv_dim), dtype=dtype, device=device),
+            "dt_bias": dt + torch.log1p(-torch.exp(-dt)),
+            "A_log": a_log.expand(nl, nh).contiguous(),
+            "D": torch.ones((nl, nh), dtype=torch.float32, device=device),
+            "norm_w": ones(nl, di),
+            "out_proj": nrm((nl, di, d), di),
+        },
+    }
+
+
+def _attn_params(cfg: ArchConfig, lead: tuple, nrm):
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {"wq": nrm(lead + (d, h * hd), d),
+            "wk": nrm(lead + (d, hkv * hd), d),
+            "wv": nrm(lead + (d, hkv * hd), d),
+            "wo": nrm(lead + (h * hd, d), h * hd)}
+
+
+def _mlp_params(d: int, f: int, act: str, lead: tuple, nrm):
+    if act == "swiglu":
+        return {"w_gate": nrm(lead + (d, f), d),
+                "w_up": nrm(lead + (d, f), d),
+                "w_down": nrm(lead + (f, d), f)}
+    return {"w_up": nrm(lead + (d, f), d), "w_down": nrm(lead + (f, d), f)}
+
+
+def init_shared_params(cfg: ArchConfig, gen: torch.Generator,
+                       dtype=torch.float32, device=None):
+    """The hybrid family's shared attention + SwiGLU MLP block (one set of
+    weights, no layer axis); None for other families."""
+    if cfg.hybrid is None:
+        return None
+    nrm = lambda shape, fan: _normal(gen, shape, fan, dtype, device)
+    ones = lambda *shape: torch.ones(shape, dtype=dtype, device=device)
+    return {"ln1": ones(cfg.d_model), "ln2": ones(cfg.d_model),
+            "attn": _attn_params(cfg, (), nrm),
+            "mlp": _mlp_params(cfg.d_model, cfg.hybrid.shared_d_ff,
+                               "swiglu", (), nrm)}
+
+
 def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32,
                 n_layers: Optional[int] = None, device=None):
-    """Full model parameter dict (dense or ssm family); layer leaves get a
-    leading ``n_layers`` axis (``n_layers`` may exceed ``cfg.n_layers`` —
-    stage padding; padded layers are masked at apply time). Draws from the
-    torch generator ``gen`` (whose device must be ``device``); the numbers
+    """Full model parameter dict (dense, ssm or hybrid family); layer
+    leaves get a leading ``n_layers`` axis (``n_layers`` may exceed
+    ``cfg.n_layers`` — stage padding; padded layers are masked at apply
+    time); hybrid archs add the ``"shared"`` block. Draws from the torch
+    generator ``gen`` (whose device must be ``device``); the numbers
     differ from the reference's ``jax.random`` init, so cross-framework
     tests load the reference's weights with :func:`params_from_numpy`
     instead."""
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     nl = n_layers or cfg.n_layers
-    d, h, hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                        cfg.head_dim, cfg.d_ff)
+    d = cfg.d_model
     nrm = lambda shape, fan: _normal(gen, shape, fan, dtype, device)
     ones = lambda *shape: torch.ones(shape, dtype=dtype, device=device)
     if cfg.family == "ssm":
         layers = _ssm_layers(cfg, nl, nrm, ones, gen, dtype, device)
         embed = nrm((cfg.vocab_size, d), 1)
-    else:
-        mlp = ({"w_gate": nrm((nl, d, f), d), "w_up": nrm((nl, d, f), d),
-                "w_down": nrm((nl, f, d), f)} if cfg.act == "swiglu" else
-               {"w_up": nrm((nl, d, f), d), "w_down": nrm((nl, f, d), f)})
+    elif cfg.family == "hybrid":
+        layers = _hybrid_layers(cfg, nl, nrm, ones, gen, dtype, device)
         embed = nrm((cfg.vocab_size, d), 1)
-        layers = {
-            "attn": {"wq": nrm((nl, d, h * hd), d),
-                     "wk": nrm((nl, d, hkv * hd), d),
-                     "wv": nrm((nl, d, hkv * hd), d),
-                     "wo": nrm((nl, h * hd, d), h * hd)},
-            "ln1": ones(nl, d),
-            "ln2": ones(nl, d),
-            "mlp": mlp,
-        }
+    else:  # (draw order: MLP, embedding, attention)
+        mlp = _mlp_params(d, cfg.d_ff, cfg.act, (nl,), nrm)
+        embed = nrm((cfg.vocab_size, d), 1)
+        layers = {"attn": _attn_params(cfg, (nl,), nrm), "ln1": ones(nl, d),
+                  "ln2": ones(nl, d), "mlp": mlp}
     params = {
         "embed": {"tok": embed},
         "layers": layers,
         "final_norm": ones(d),
     }
+    if cfg.hybrid is not None:
+        params["shared"] = init_shared_params(cfg, gen, dtype, device)
     if not cfg.tie_embeddings:
         params["head"] = nrm((d, cfg.vocab_size), d)
     return params
@@ -129,8 +186,10 @@ def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
         if x is None:
             return None
         arr = np.array(x)  # a writable copy (JAX hands out read-only views)
-        if arr.dtype.kind == "f" and arr.dtype.itemsize != 4:
-            arr = arr.astype(np.float32)  # bf16 (ml_dtypes): no torch bridge
+        if arr.dtype.name == "bfloat16" or (arr.dtype.kind == "f"
+                                            and arr.dtype.itemsize != 4):
+            # ml_dtypes' bf16 (numpy kind "V") has no torch bridge
+            arr = arr.astype(np.float32)
         t = torch.from_numpy(arr).to(device)
         if t.is_floating_point():
             if path.rsplit("/", 1)[-1] in FP32_LEAVES:
@@ -160,14 +219,54 @@ def layer_slice(tree, i):
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                cache_dtype=torch.bfloat16, n_layers: Optional[int] = None,
-               device=None):
-    """Stacked dense per-layer cache (leading layer axis); each leaf in its
-    own dtype (``B.layer_cache_shape``: the SSM state is fp32)."""
+               device=None, window: int = 0):
+    """Stacked dense per-layer cache (leading layer axis) + the hybrid
+    family's shared-site cache (leading site axis, ``n_shared_sites``;
+    ``window`` > 0 bounds its strips to the window); each leaf in its own
+    dtype (``B.layer_cache_shape``: the SSM state is fp32)."""
     nl = n_layers or cfg.n_layers
     one = B.layer_cache_shape(cfg, batch, max_seq, cache_dtype)
+    shared = None
+    if cfg.hybrid is not None:
+        ns = n_shared_sites(cfg)
+        shared = {k: torch.zeros((ns,) + shape, dtype=dt, device=device)
+                  for k, (shape, dt) in B.shared_cache_shape(
+                      cfg, batch, max_seq, cache_dtype, window).items()}
     return {"layers": {k: torch.zeros((nl,) + shape, dtype=dt, device=device)
                        for k, (shape, dt) in one.items()},
-            "shared": None}
+            "shared": shared}
+
+
+# ---------------------------------------------------------------------------
+# Shared-site bookkeeping (hybrid archs)
+# ---------------------------------------------------------------------------
+
+
+def shared_site_flags(cfg: ArchConfig, layer_offset: int, n_local: int):
+    """(use_shared, site_slot) lists for layers [offset, offset + n_local):
+    the shared block runs after every ``attn_every``-th real layer, and
+    ``site_slot`` is its *local* slot in this stage's shared-cache buffer
+    (sequential over the stage's flagged layers; 0 where unflagged)."""
+    if cfg.hybrid is None:
+        return [False] * n_local, [0] * n_local
+    flags = [(g + 1) % cfg.hybrid.attn_every == 0 and g < cfg.n_layers
+             for g in range(layer_offset, layer_offset + n_local)]
+    slots, count = [], 0
+    for f in flags:
+        count += f
+        slots.append(max(count - 1, 0))
+    return flags, slots
+
+
+def n_shared_sites(cfg: ArchConfig, layer_offset: int = 0,
+                   n_local: Optional[int] = None) -> int:
+    """Shared sites among layers [offset, offset + n_local) (all layers by
+    default); at least 1, as the reference (a stage with none keeps one
+    unused slot)."""
+    if cfg.hybrid is None:
+        return 0
+    n_local = n_local if n_local is not None else cfg.n_layers
+    return max(sum(shared_site_flags(cfg, layer_offset, n_local)[0]), 1)
 
 
 # ---------------------------------------------------------------------------
@@ -176,40 +275,57 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
 
 
 def stack_apply(cfg: ArchConfig, opts: ModelOptions, layer_params, x, *,
-                pos, mode: str = "train", cache=None, layer_mask=None,
-                kv_offset=None, window: int = 0, block_tables=None,
-                write_mask=None, q_lens=None):
+                pos, mode: str = "train", cache=None, shared_params=None,
+                layer_mask=None, layer_offset: int = 0, kv_offset=None,
+                window: int = 0, block_tables=None, write_mask=None,
+                q_lens=None):
     """Apply a contiguous slice of the layer stack.
 
     layer_params: a list of per-layer parameter dicts (views into the
     layer-stacked leaves; see :func:`layer_slice`).
     cache: {"layers": {"k", "v"} or {"ssm", "conv"} stacked per layer,
-    "shared": None} or None; with ``block_tables`` the stacked leaves are
+    "shared": the slice's shared-site K/V strips (leading local site axis)
+    or None} or None; with ``block_tables`` the stacked leaves are
     per-layer block *pools*. ``write_mask`` (b,) gates which rows' cache
     entries a serving call may write; ``q_lens`` (b,) makes append a
     ragged wave (see ``blocks.attn_apply``).
     layer_mask: (n_local,) bools — False = padded no-op layer (skipped).
-    In train mode with ``opts.remat`` each layer is a
-    ``torch.utils.checkpoint`` — the reference's ``jax.checkpoint`` of the
-    scan body: backward keeps each layer's input and recomputes the rest.
-    Returns (y, cache); cache leaves are updated in place.
+    ``shared_params`` (hybrid archs): after every flagged layer
+    (:func:`shared_site_flags` at ``layer_offset``, the slice's first
+    global layer) the shared attention block runs on that site's slot of
+    ``cache["shared"]``.
+    In train mode with ``opts.remat`` each layer (with its shared block)
+    is a ``torch.utils.checkpoint`` — the reference's ``jax.checkpoint``
+    of the scan body: backward keeps each layer's input and recomputes
+    the rest. Returns (y, cache); cache leaves are updated in place.
     """
     n_local = len(layer_params)
     if layer_mask is None:
         layer_mask = [True] * n_local
     block = B.block_fn_for(cfg)
     remat = mode == "train" and opts.remat
+    flags, slots = shared_site_flags(cfg, layer_offset, n_local)
+    sh_cache = None if cache is None else cache["shared"]
     for i in range(n_local):
         if not layer_mask[i]:
             continue
         p_i = layer_params[i]
         c_i = None if cache is None else layer_slice(cache["layers"], i)
+        use_sh = shared_params is not None and flags[i]
+        sc_i = (layer_slice(sh_cache, slots[i])
+                if use_sh and sh_cache is not None else None)
 
-        def run(x, p_i=p_i, c_i=c_i):
-            return block(cfg, opts, p_i, x, pos=pos, cache=c_i,
-                         kv_offset=kv_offset, mode=mode, window=window,
-                         block_tables=block_tables, write_mask=write_mask,
-                         q_lens=q_lens)[0]
+        def run(x, p_i=p_i, c_i=c_i, use_sh=use_sh, sc_i=sc_i):
+            y = block(cfg, opts, p_i, x, pos=pos, cache=c_i,
+                      kv_offset=kv_offset, mode=mode, window=window,
+                      block_tables=block_tables, write_mask=write_mask,
+                      q_lens=q_lens)[0]
+            if use_sh:
+                y = B.shared_attn_block(
+                    cfg, opts, shared_params, y, pos=pos, cache=sc_i,
+                    kv_offset=kv_offset, mode=mode, window=window,
+                    write_mask=write_mask)[0]
+            return y
 
         x = (checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
              if remat and torch.is_grad_enabled() else run(x))
@@ -284,8 +400,10 @@ def forward(cfg: ArchConfig, opts: ModelOptions, params, batch: dict,
         layer_mask = [i < cfg.n_layers for i in range(n_stack)]
     layers = [layer_slice(params["layers"], i) for i in range(n_stack)]
     y, cache = stack_apply(cfg, opts, layers, x, pos=pos,
-                           mode=mode, cache=cache, kv_offset=kv_offset,
-                           window=window, layer_mask=layer_mask)
+                           mode=mode, cache=cache,
+                           shared_params=params.get("shared"),
+                           kv_offset=kv_offset, window=window,
+                           layer_mask=layer_mask)
     return lm_logits(cfg, params, y), cache
 
 

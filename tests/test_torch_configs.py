@@ -1,6 +1,6 @@
 """PyTorch port — configs: the port's ArchConfig agrees with the reference
 field by field, in its reduced() smoke form, and in param_count(), for the
-registered archs (chatglm3-6b, falcon-mamba-7b) and every reference
+registered archs (chatglm3-6b, falcon-mamba-7b, zamba2-7b) and every reference
 arch's config logic."""
 import dataclasses
 
@@ -23,7 +23,8 @@ def _port_copy(ref_cfg):
 
 
 def test_registry_holds_the_ported_archs():
-    assert tcfg.list_archs() == ["chatglm3-6b", "falcon-mamba-7b"]
+    assert tcfg.list_archs() == ["chatglm3-6b", "falcon-mamba-7b",
+                                 "zamba2-7b"]
     with pytest.raises(KeyError, match="unknown arch"):
         tcfg.get_config("yi-34b")
 

@@ -12,7 +12,10 @@
   fully masked rows (a negative offset), with every gradient finite;
 * ``chunked_attention`` and ``layer_norm`` against the reference; the
   ``attention`` dispatch's flash branch taken exactly under the
-  reference's condition.
+  reference's condition;
+* zamba2-7b's shared-block head dim 112 (MHA, not a multiple of 64): the
+  plain version and the op's gradients against the Pallas kernel in
+  interpret mode.
 
 The CUDA kernel itself runs only on a card: its test carries the ``gpu``
 marker and skips here (chip_smoke.py holds it against the plain version
@@ -73,6 +76,37 @@ def test_plain_matches_reference_kernel(case):
     assert tfa.launches == launches  # a CPU tensor never reaches the kernel
     assert got.dtype == TDT[dt] and got.shape == q.shape
     assert _err(want.astype(jnp.float32), got.float()) < TOL[dt]
+
+
+# zamba2-7b's shared attention block: MHA at head_dim 112 (a narrow
+# stand-in for its 32 heads), causal, over a ragged 100-token sequence
+HD112 = [(1, 100, 100, 4, 4, 112, True, 0, 0, dt)
+         for dt in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_plain_matches_reference_kernel_hd112(dt):
+    b, sq, sk, hq, hkv, hd, causal, window, off, _ = HD112[0]
+    arrs = _qkv(112, b, sq, sk, hq, hkv, hd)
+    want = jops.flash_attention(
+        *(jnp.asarray(a, JDT[dt]) for a in arrs), causal=causal,
+        block_q=32, block_k=32)
+    q, k, v = (torch.from_numpy(a).to(TDT[dt]) for a in arrs)
+    got = tops.flash_attention(q, k, v, causal=causal, block_q=32,
+                               block_k=32)
+    assert got.dtype == TDT[dt] and got.shape == q.shape
+    assert _err(want.astype(jnp.float32), got.float()) < TOL[dt]
+    if dt == "float32":  # the op's gradients, as test_gradients_match_...
+        ct = np.random.default_rng(113).normal(size=arrs[0].shape).astype(
+            np.float32)
+        jg = jax.grad(lambda *x: jnp.sum(jops.flash_attention(
+            *x, causal=causal, block_q=32, block_k=32) * ct),
+            argnums=(0, 1, 2))(*(jnp.asarray(a) for a in arrs))
+        q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrs)
+        tops.flash_attention(q, k, v, causal=causal, block_q=32,
+                             block_k=32).backward(torch.from_numpy(ct))
+        for want_g, got_g in zip(jg, (q.grad, k.grad, v.grad)):
+            assert _err(want_g, got_g) < 2e-5
 
 
 def test_block_size_invariance():
@@ -212,7 +246,16 @@ CARD_SWEEP = SWEEP + [
     (1, 130, 130, 4, 1, 128, True, 50, 0, "bfloat16"),
     (1, 130, 130, 4, 1, 128, True, 50, 0, "float32"),
     (2, 200, 200, 4, 2, 128, False, 0, 0, "bfloat16"),
-]
+] + HD112
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_head_dims_it_was_not_built_for(cuda_device):
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _qkv(8, 1, 16, 16, 2, 2, 96))
+    assert 96 not in tfa.HEAD_DIMS
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention_kernel(q, k, v)
 
 
 @pytest.mark.gpu
