@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with a CUDA card (H100):
     python3 chip_smoke.py [--out results.json] [--phases 2,3,5]
 
 It builds the hand-written CUDA kernels from the checkout's sources (one
-nvcc per source, all started together) and runs fifteen phases, each a hard
+nvcc per source, all started together) and runs sixteen phases, each a hard
 assert; it exits 0 only if every phase passed, and exits non-zero without
 a result when no CUDA device is visible. ``--phases`` runs a subset (the
 build always runs) and then prints neither the kernels line nor the last
@@ -175,12 +175,37 @@ line.
    plain version. (c) ``run_model_selection`` on 12 full-width layers,
    seq 2048, 3 steps, remat, K1 fp32 at head_dim 112: K1's launches equal
    the schedule's; what phase 7 records.
-16. A {"kernels": [...]} line for every ported kernel, the card line, and
+16. The MoE family (granite-moe-3b-a800m: 40 experts, top-8, 24 query
+   heads on 8 at head_dim 64, vocab 49155; llama4-scout-17b-a16e: 16
+   experts, top-1, 40 heads on 8 at head_dim 128). (a) K2 (decode, a
+   64-wide append, phase 5's shapes) and K1 (b 1, seq 2048) at granite's
+   heads against their plain versions, with phases 2 and 3's tolerances,
+   timing, bounds and SDPA beside K1. (b) Phase 4's engine and trace at
+   full width, 2 fp32 layers, 2 stages, 2 data shards (each shard's rows
+   routed alone), capacity factor E / k (nothing dropped): 0 mismatches
+   against the oracle for granite, then for llama4-scout (its 25 GB of
+   weights shared with the oracle, freed after), K2's launches = calls x
+   slots x layers. (c) Granite at all 32 layers in bf16 at the launcher's
+   factor 1.25 on phase 5's grid and trace (``paged_serve_path``, phase
+   5's checks and records); one profiled decode and one append call:
+   host ops and the card's busy ms by region (``busy_by_region``: expert
+   products, routing and dispatch, K2, the rest); every ``moe_apply`` of
+   one decode call under ``torch.cuda.set_sync_debug_mode("error")``. (d)
+   The train step (K1, 2 data shards) against sequential runs of the
+   reference oracle's objective (per-shard CE and aux, each averaged), by
+   phase 6's gates, at factor E / k and at 1.25; a failing gate reports
+   the routing decisions that differ between K1 and plain attention. (e)
+   ``run_model_selection`` on 8 full-width granite layers, seq 2048, K1
+   fp32, factor 1.25: K1's launches equal the schedule's; what phase 7
+   records, plus the capacity-padded FLOPs and the MoE share of a
+   profiled step's busy time.
+17. A {"kernels": [...]} line for every ported kernel, the card line, and
    the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -282,10 +307,12 @@ N_BLOCKS = 1024
 
 
 def make_case(dev, dt, sq, offsets, q_lens, seed, bs=BS, n_tbl=128,
-              needles=False):
+              needles=False, heads=(HQ, HKV, HD)):
     """Random pool and ragged tables: row r's live blocks are a random
     disjoint subset of the pool covering offsets[r] + sq positions; the rest
-    of its table is -1. ``needles``: see :func:`plant_needles`."""
+    of its table is -1. ``needles``: see :func:`plant_needles`. ``heads``:
+    (query heads, KV heads, head_dim)."""
+    hq, hkv, hd = heads
     rng = np.random.default_rng(seed)
     b = len(offsets)
     q_lens = [sq] * b if q_lens is None else q_lens
@@ -298,8 +325,8 @@ def make_case(dev, dt, sq, offsets, q_lens, seed, bs=BS, n_tbl=128,
         rng.standard_normal(shape, dtype=np.float32)).to(dev, dt)
     off = torch.tensor(offsets, dtype=torch.int32, device=dev)
     ql = torch.tensor(q_lens, dtype=torch.int32, device=dev)
-    case = dict(q=mk(b, sq, HQ, HD), k_pool=mk(N_BLOCKS, bs, HKV, HD),
-                v_pool=mk(N_BLOCKS, bs, HKV, HD),
+    case = dict(q=mk(b, sq, hq, hd), k_pool=mk(N_BLOCKS, bs, hkv, hd),
+                v_pool=mk(N_BLOCKS, bs, hkv, hd),
                 block_tables=torch.from_numpy(tables).to(dev),
                 kv_offset=off, kv_len=off + ql, q_lens=ql)
     if needles:
@@ -349,56 +376,62 @@ def k2_limit(want) -> float:
     return limit
 
 
+def k2_check(pa, dev, flush, card, dt, seed, case, heads=(HQ, HKV, HD)):
+    """One K2 case (a ``CASES`` row) against the plain version, timed with
+    its bound when the row says so. Returns (record, failure or None)."""
+    name, sq, offsets, q_lens, window, bs, n_tbl, timed = case
+    hq, hkv, hd = heads
+    a = make_case(dev, dt, sq, offsets, q_lens, seed=seed, bs=bs,
+                  n_tbl=n_tbl, needles=name.endswith("needles"), heads=heads)
+    kw = dict(causal=True, window=window, q_lens=a["q_lens"])
+    args = [a[n] for n in ("q", "k_pool", "v_pool", "block_tables",
+                           "kv_offset", "kv_len")]
+    # (the first version of K2, timed for comparison, keeps neither
+    # variant counts nor a split plan)
+    counts = getattr(pa, "variant_launches", {})
+    before = dict(counts)
+    got = pa.paged_attention_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    variant = next((v for v, n in counts.items() if n > before[v]), None)
+    want = pa.paged_attention_plain(*args, **kw)
+    err = float((got.float() - want.float()).abs().max())
+    limit = k2_limit(want)
+    rec = dict(card=card, case=name, dtype=str(dt).split(".")[-1],
+               variant=variant, b=len(offsets), sq=sq, window=window,
+               block_size=bs, n_tbl=n_tbl, hq=hq, hkv=hkv, hd=hd,
+               splits=pa.plan_splits(n_tbl, bs, sq, hq // hkv, variant)[1]
+               if variant else None,
+               max_abs_err=err, tol=TOL[dt], limit=limit,
+               max_abs_plain=float(want.float().abs().max()))
+    failure = None
+    if not (bool(torch.isfinite(got).all()) and err < TOL[dt]
+            and err <= limit):
+        failure = (f"{name}/{rec['dtype']} ({variant}): max |kernel - "
+                   f"plain| {err} (limit {limit})")
+    if timed:
+        ms = cuda_ms(lambda: pa.paged_attention_kernel(*args, **kw), flush)
+        plain_ms = cuda_ms(lambda: pa.paged_attention_plain(*args, **kw),
+                           flush)
+        es = a["q"].element_size()
+        pairs, live = case_work(offsets, q_lens, sq, window)
+        nbytes = (live * hkv * hd * 2 * es + 2 * a["q"].numel() * es
+                  + 4 * (a["block_tables"].numel() + 3 * len(offsets)))
+        ops = pairs * hq * hd * 4  # QK^T and PV, 2 ops per MAC
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dt]
+        rec.update(ms=ms, plain_ms=plain_ms,
+                   bound_ms=1e3 * max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   live_kv_tokens=live, bytes=nbytes, ops=ops)
+    return rec, failure
+
+
 def phase2(pa, dev, flush, card):
     results, failed = [], []
     for dt in (torch.float32, torch.bfloat16):
-        for i, (name, sq, offsets, q_lens, window, bs, n_tbl,
-                timed) in enumerate(CASES):
-            a = make_case(dev, dt, sq, offsets, q_lens, seed=i, bs=bs,
-                          n_tbl=n_tbl, needles=name.endswith("needles"))
-            kw = dict(causal=True, window=window, q_lens=a["q_lens"])
-            args = [a[n] for n in ("q", "k_pool", "v_pool", "block_tables",
-                                   "kv_offset", "kv_len")]
-            # (the first version of K2, timed for comparison, keeps
-            # neither variant counts nor a split plan)
-            counts = getattr(pa, "variant_launches", {})
-            before = dict(counts)
-            got = pa.paged_attention_kernel(*args, **kw)
-            torch.cuda.synchronize()
-            variant = next((v for v, n in counts.items() if n > before[v]),
-                           None)
-            want = pa.paged_attention_plain(*args, **kw)
-            err = float((got.float() - want.float()).abs().max())
-            limit = k2_limit(want)
-            rec = dict(card=card, case=name, dtype=str(dt).split(".")[-1],
-                       variant=variant, b=len(offsets), sq=sq, window=window,
-                       block_size=bs, n_tbl=n_tbl,
-                       splits=pa.plan_splits(n_tbl, bs, sq, HQ // HKV,
-                                             variant)[1]
-                       if variant else None,
-                       max_abs_err=err, tol=TOL[dt], limit=limit,
-                       max_abs_plain=float(want.float().abs().max()))
-            if not (bool(torch.isfinite(got).all()) and err < TOL[dt]
-                    and err <= limit):
-                failed.append(f"{name}/{rec['dtype']} ({variant}): max "
-                              f"|kernel - plain| {err} (limit {limit})")
-            if timed:
-                ms = cuda_ms(lambda: pa.paged_attention_kernel(*args, **kw),
-                             flush)
-                plain_ms = cuda_ms(
-                    lambda: pa.paged_attention_plain(*args, **kw), flush)
-                es = a["q"].element_size()
-                pairs, live = case_work(offsets, q_lens, sq, window)
-                nbytes = (live * HKV * HD * 2 * es + 2 * a["q"].numel() * es
-                          + 4 * (a["block_tables"].numel()
-                                 + 3 * len(offsets)))
-                ops = pairs * HQ * HD * 4  # QK^T and PV, 2 ops per MAC
-                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dt]
-                rec.update(ms=ms, plain_ms=plain_ms,
-                           bound_ms=1e3 * max(t_bytes, t_ops),
-                           bound_by="bytes" if t_bytes >= t_ops
-                           else "operations",
-                           live_kv_tokens=live, bytes=nbytes, ops=ops)
+        for i, case in enumerate(CASES):
+            rec, failure = k2_check(pa, dev, flush, card, dt, i, case)
+            if failure:
+                failed.append(failure)
             results.append(rec)
             say("phase 2:", json.dumps(rec))
     assert not failed, "phase 2: " + "; ".join(failed)
@@ -458,72 +491,90 @@ def flash_bound_s(q, k, v, **kw) -> float:
 
 
 def phase3(fa, ops, dev, flush, card):
-    import torch.nn.functional as F
     results, failed = [], []
     gen = torch.Generator(device=dev).manual_seed(7)
     for dt in (torch.float32, torch.bfloat16):
-        for name, b, sq, sk, hq, hkv, hd, causal, window, off in FLASH_CASES:
-            mk = lambda *shape: torch.randn(*shape, generator=gen,
-                                            device=dev).to(dt)
-            q, k, v = mk(b, sq, hq, hd), mk(b, sk, hkv, hd), mk(b, sk, hkv, hd)
-            kw = dict(causal=causal, window=window, kv_offset=off)
-            got = fa.flash_attention_kernel(q, k, v, **kw)
-            torch.cuda.synchronize()
-            want = fa.flash_attention_plain(q, k, v, **kw)
-            err = float((got.float() - want.float()).abs().max())
-            if not (bool(torch.isfinite(got).all()) and got.dtype == dt
-                    and err < FLASH_TOL[dt]):
-                failed.append(f"{name}/{dt}: max |kernel - plain| {err}")
-            rec = dict(card=card, case=name, dtype=str(dt).split(".")[-1],
-                       b=b, sq=sq, sk=sk, hq=hq, hkv=hkv, hd=hd,
-                       window=window, kv_offset=off, max_abs_err=err,
-                       tol=FLASH_TOL[dt])
-            if name in FLASH_TIMED:
-                nbytes, ops_n, pairs = flash_work(q, k, v, **kw)
-                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_n / PEAK_OPS[dt]
-                qt, kt, vt = (x.transpose(1, 2).contiguous()
-                              for x in (q, k, v))
-                rec.update(
-                    ms=cuda_ms(lambda: fa.flash_attention_kernel(q, k, v,
-                                                                 **kw),
-                               flush),
-                    plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
-                        q, k, v, **kw), flush),
-                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True), flush),
-                    bound_ms=1e3 * max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    pairs=pairs, bytes=nbytes, ops=ops_n)
-                lib = F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)
-                rec["library_max_abs_err"] = float(
-                    (lib.transpose(1, 2).float() - want.float()).abs().max())
-            if dt == torch.float32:
-                # gradients: the op (kernel forward, chunked backward)
-                # against autograd of the plain version
-                ct = torch.randn(q.shape, generator=gen, device=dev)
-                grads = []
-                for fn in (ops.flash_attention, fa.flash_attention_plain):
-                    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-                    fn(*leaves, **kw).backward(ct)
-                    grads.append([x.grad for x in leaves])
-                gerr = max(float((a - b_).abs().max()) / max(
-                    1.0, float(b_.abs().max())) for a, b_ in zip(*grads))
-                # fp32 sums over up to 2048 keys in other orders: 2e-5
-                # relative to the gradient's largest entry
-                if not (all(bool(torch.isfinite(g).all()) for g in grads[0])
-                        and gerr < 2e-5):
-                    failed.append(f"{name}: gradient error {gerr}")
-                rec["grad_rel_err"] = gerr
+        for case in FLASH_CASES:
+            rec = k1_check(fa, ops, dev, flush, card, gen, dt, case,
+                           case[0] in FLASH_TIMED, failed)
             results.append(rec)
             say("phase 3:", json.dumps(rec))
     assert not failed, "phase 3: " + "; ".join(failed)
     return results
 
 
+def k1_check(fa, ops, dev, flush, card, gen, dt, case, timed, failed):
+    """One K1 case (a ``FLASH_CASES`` row) against the plain version;
+    timed with its bound and SDPA's time when ``timed``; in fp32 also the
+    gradients of the op against autograd of the plain version. Failures
+    go to ``failed``; returns the record."""
+    import torch.nn.functional as F
+    name, b, sq, sk, hq, hkv, hd, causal, window, off = case
+    mk = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(dt)
+    q, k, v = mk(b, sq, hq, hd), mk(b, sk, hkv, hd), mk(b, sk, hkv, hd)
+    kw = dict(causal=causal, window=window, kv_offset=off)
+    got = fa.flash_attention_kernel(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    err = float((got.float() - want.float()).abs().max())
+    if not (bool(torch.isfinite(got).all()) and got.dtype == dt
+            and err < FLASH_TOL[dt]):
+        failed.append(f"{name}/{dt}: max |kernel - plain| {err}")
+    rec = dict(card=card, case=name, dtype=str(dt).split(".")[-1], b=b,
+               sq=sq, sk=sk, hq=hq, hkv=hkv, hd=hd, window=window,
+               kv_offset=off, max_abs_err=err, tol=FLASH_TOL[dt])
+    if timed:
+        nbytes, ops_n, pairs = flash_work(q, k, v, **kw)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_n / PEAK_OPS[dt]
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        rec.update(
+            ms=cuda_ms(lambda: fa.flash_attention_kernel(q, k, v, **kw),
+                       flush),
+            plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
+                             flush),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), flush),
+            bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            pairs=pairs, bytes=nbytes, ops=ops_n)
+        lib = F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        rec["library_max_abs_err"] = float(
+            (lib.transpose(1, 2).float() - want.float()).abs().max())
+    if dt == torch.float32:
+        # gradients: the op (kernel forward, chunked backward) against
+        # autograd of the plain version
+        ct = torch.randn(q.shape, generator=gen, device=dev)
+        grads = []
+        for fn in (ops.flash_attention, fa.flash_attention_plain):
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            fn(*leaves, **kw).backward(ct)
+            grads.append([x.grad for x in leaves])
+        gerr = max(float((a - b_).abs().max()) / max(
+            1.0, float(b_.abs().max())) for a, b_ in zip(*grads))
+        # fp32 sums over up to 2048 keys in other orders: 2e-5 relative
+        # to the gradient's largest entry
+        if not (all(bool(torch.isfinite(g).all()) for g in grads[0])
+                and gerr < 2e-5):
+            failed.append(f"{name}: gradient error {gerr}")
+        rec["grad_rel_err"] = gerr
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # Phases 4 and 5: the serve engine
 # ---------------------------------------------------------------------------
+
+
+def trace4(vocab):
+    """Phase 4's trace: 7 staggered requests of 17-70 prompt tokens and 2-6
+    new tokens."""
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(1)
+    shapes = [(40, 4), (70, 3), (33, 5), (64, 6), (17, 2), (50, 4), (29, 3)]
+    return [Request(i, rng.integers(0, vocab, (p,)).astype(np.int32), g,
+                    arrival=0.5 * i) for i, (p, g) in enumerate(shapes)]
 
 
 def phase4(dev):
@@ -532,7 +583,7 @@ def phase4(dev):
     from repro_torch.core.partitioner import plan_stages
     from repro_torch.models import lm
     from repro_torch.models.layers import ModelOptions
-    from repro_torch.serve import Request, ServeEngine, blocks_for
+    from repro_torch.serve import ServeEngine, blocks_for
 
     cfg = dataclasses.replace(get_config("chatglm3-6b"), n_layers=2)
     max_seq = 80
@@ -545,10 +596,7 @@ def phase4(dev):
     params = pl.init_trial_params(cfg, eng, plan_stages(cfg, 2), gen,
                                   dtype=torch.float32, device=dev)
     opts = ModelOptions(use_paged_kernel=True)
-    rng = np.random.default_rng(1)
-    shapes = [(40, 4), (70, 3), (33, 5), (64, 6), (17, 2), (50, 4), (29, 3)]
-    reqs = [Request(i, rng.integers(0, cfg.vocab_size, (p,)).astype(np.int32),
-                    g, arrival=0.5 * i) for i, (p, g) in enumerate(shapes)]
+    reqs = trace4(cfg.vocab_size)
     engine = ServeEngine(cfg, eng, params, opts, device=dev)
     comps = engine.run([r.clone() for r in reqs])
     p1 = lm.layer_slice(params, 0)  # vocab 65024 is already a multiple of 2
@@ -579,11 +627,15 @@ def profile_call(fn):
         out = fn()
         torch.cuda.synchronize()
     events = prof.events()
-    host = sum(1 for e in events if e.name.startswith("aten::")
+    return out, host_ops(events), [e for e in events
+                                   if e.device_type == DeviceType.CUDA]
+
+
+def host_ops(events) -> int:
+    """Top-level aten calls among a profile's events."""
+    return sum(1 for e in events if e.name.startswith("aten::")
                and (e.cpu_parent is None
                     or not e.cpu_parent.name.startswith("aten::")))
-    return out, host, [e for e in events
-                       if e.device_type == DeviceType.CUDA]
 
 
 def profile_decode_call(engine, req, by_class=None):
@@ -624,11 +676,17 @@ def device_kernels(prof) -> list:
     recorded on the card, read from its raw records: parsing them into
     the profiler's event tree takes minutes for a run of several hundred
     thousand host ops and kernels."""
+    return [(e.name(), e.start_ns(), e.duration_ns() / 1e6)
+            for e in prof.profiler.kineto_results.events() if on_card(e)]
+
+
+def on_card(e) -> bool:
+    """A raw profiler record of work on the card: a kernel or a copy, not
+    the card-side span the profiler mirrors of a ``record_function`` range
+    (which covers the gaps between the range's kernels)."""
     from torch.autograd import DeviceType
 
-    return [(e.name(), e.start_ns(), e.duration_ns() / 1e6)
-            for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA]
+    return e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
 
 
 def launch_bound_s(q, k_pool, v_pool, block_tables, kv_offset, kv_len,
@@ -718,19 +776,35 @@ def profile_k2_by_mode(pa, make_engine, reqs):
 
 def phase5(pa, dev, card):
     from repro_torch.configs import get_config
+    from repro_torch.models.layers import ModelOptions
+
+    opts = ModelOptions(compute_dtype=torch.bfloat16, use_paged_kernel=True)
+    rec, launches, _ = paged_serve_path(pa, get_config("chatglm3-6b"), opts,
+                                        dev, card)
+    say("phase 5: full chatglm3-6b bf16 paged serving:", json.dumps(rec))
+    return rec, launches
+
+
+def paged_serve_path(pa, cfg, opts, dev, card):
+    """Phase 5's grid and traffic on ``cfg`` at full depth in bf16 through
+    the paged engine with K2 (``opts``): 2 stages, 2 slots × microbatch 2,
+    block 16, 8 requests of 128-1024 prompt tokens and 32 new tokens,
+    split admission. Asserts every budget met, K2's launches = calls ×
+    slots × layers, all decode launches split-KV and all append launches
+    the tensor-core tile; records wall, tokens/s, ms per call by kind, K2's
+    device time by mode (a profiled second run, whose tokens must equal),
+    one profiled decode call and peak memory. Returns (record, launches,
+    {eng, params, reqs} for more profiling)."""
     from repro_torch.core import pipeline as pl
     from repro_torch.core.partitioner import plan_stages
-    from repro_torch.models.layers import ModelOptions
     from repro_torch.serve import Request, ServeEngine, blocks_for
 
-    cfg = get_config("chatglm3-6b")
     bf16 = torch.bfloat16
     gen_len, max_seq = 32, 1024 + 32
     eng = pl.EngineConfig(n_trials=1, n_microbatches=2, microbatch=2,
                           n_stages=2, max_seq=max_seq, cache_dtype=bf16,
                           prefill_chunks=2, paged=True, block_size=BS,
                           n_blocks=4 * blocks_for(max_seq, BS))
-    opts = ModelOptions(compute_dtype=bf16, use_paged_kernel=True)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     params = pl.init_trial_params(cfg, eng, plan_stages(cfg, eng.n_stages),
@@ -794,7 +868,8 @@ def phase5(pa, dev, card):
         busy_by_class)
     decode_ms = 1e3 * float(np.median(times["decode"]))
     rec = dict(
-        card=card, layers=cfg.n_layers, d_model=cfg.d_model, dtype="bfloat16",
+        card=card, arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        dtype="bfloat16",
         stages=eng.n_stages, slots=eng.n_microbatches,
         microbatch=eng.microbatch, requests=len(comps),
         prompt_tokens=st.prompt_tokens, tokens_generated=st.tokens_generated,
@@ -818,13 +893,12 @@ def phase5(pa, dev, card):
                                   else 1.0 - busy_ms / decode_ms),
         profiled_wall_s=wall2, param_init_s=init_s,
         ttft_p50_ticks=st.summary().get("ttft_p50"))
-    say("phase 5: full chatglm3-6b bf16 paged serving:", json.dumps(rec))
     if variants:  # decode calls take split-KV, bf16 append chunks the tile
         slots_layers = eng.n_slots * cfg.n_layers
         assert variants == {
             "split_kv": len(times["decode"]) * slots_layers,
             "append_mma": len(times["append"]) * slots_layers}, variants
-    return rec, launches
+    return rec, launches, dict(eng=eng, params=params, reqs=reqs)
 
 
 # ---------------------------------------------------------------------------
@@ -835,36 +909,53 @@ TRAIN_HP = {"lr": [3e-3, 1e-3], "wd": [0.0, 0.01]}
 
 
 def sequential_reference(cfg, params_host, batches, eval_batch, k, dev,
-                         hp=TRAIN_HP):
-    """Trial k trained alone: its own unpipelined loss (the mean over the
-    microbatches of lm.loss_fn, plain attention and the chunked scan), its
-    true gradient norm, the same AdamW with trial k's row of ``hp``.
-    Returns (per-step losses, the loss on ``eval_batch`` after the last
-    update, final params on the host, the first step's gradient on the
-    host)."""
+                         hp=TRAIN_HP, ref_opts=None, n_shards=1):
+    """Trial k trained alone: its own unpipelined objective (plain
+    attention and the chunked scan under ``ref_opts``, default
+    ``ModelOptions()``) — the reference oracle's: the mean over
+    (microbatch, data shard) of the single-device CE, plus for the moe
+    family coef times the mean of each shard's aux — its true gradient
+    norm, the same AdamW with trial k's row of ``hp``. The forward reads
+    the real vocab of the (stage-padded) table; the padded rows stay
+    leaves, so the parameters compare leaf by leaf. Returns (per-step CE
+    losses, the CE on ``eval_batch`` after the last update, final params
+    on the host, the first step's gradient on the host)."""
     from repro_torch.models import lm
     from repro_torch.models.layers import ModelOptions
     from repro_torch.optim.adamw import AdamW
     from repro_torch.tree import tree_leaves, tree_map
 
+    ref_opts = ref_opts or ModelOptions()
     p = tree_map(lambda t: t[k].to(dev, copy=True).requires_grad_(),
                  params_host)
     stacked = lambda tree: tree_map(lambda t: t[None], tree)
     opt = AdamW(grad_clip=1.0)
     state = opt.init(stacked(p))
     hp = {n: v[k:k + 1] for n, v in hp.items()}
+    v = cfg.vocab_size
 
     def loss_of(batch):
-        n_micro = batch["tokens"].shape[1]
-        return sum(lm.loss_fn(cfg, ModelOptions(), p, {
-            "tokens": torch.from_numpy(batch["tokens"][k, m]).to(dev),
-            "labels": torch.from_numpy(batch["labels"][k, m]).to(dev)})
-            for m in range(n_micro)) / n_micro
+        """(CE, objective) of one batch."""
+        fwd = dict(p, embed={"tok": p["embed"]["tok"][:v]},
+                   head=p["head"][:, :v])
+        ces, auxes = [], []
+        for m in range(batch["tokens"].shape[1]):
+            toks = torch.from_numpy(batch["tokens"][k, m]).to(dev)
+            lbls = torch.from_numpy(batch["labels"][k, m]).to(dev)
+            for ts, ls in zip(toks.chunk(n_shards), lbls.chunk(n_shards)):
+                logits, _, aux = lm.forward(cfg, ref_opts, fwd,
+                                            {"tokens": ts})
+                ces.append(lm.cross_entropy(logits, ls))
+                auxes.append(aux)
+        ce = sum(ces) / len(ces)
+        if cfg.moe is None:
+            return ce, ce
+        return ce, ce + cfg.moe.load_balance_coef * sum(auxes) / len(auxes)
 
     losses, first = [], None
     for step, batch in enumerate(batches):
-        loss = loss_of(batch)
-        loss.backward()
+        loss, objective = loss_of(batch)
+        objective.backward()
         grads = tree_map(lambda t: t.grad[None], p)
         if step == 0:
             first = tree_map(lambda t: t[0].to("cpu", copy=True), grads)
@@ -875,15 +966,18 @@ def sequential_reference(cfg, params_host, batches, eval_batch, k, dev,
         tree_map(lambda t: t.grad.zero_(), p)
         losses.append(loss.item())
     with torch.no_grad():
-        final_loss = loss_of(eval_batch).item()
+        final_loss = loss_of(eval_batch)[0].item()
     return losses, final_loss, tree_map(
         lambda t: t.detach().to("cpu", copy=True), p), first
 
 
-def train_vs_sequential(cfg, opts, seq, seed, dev, card, hp=TRAIN_HP):
-    """K = 2 trials, 2 stages, 2 microbatches, 2 steps of the pipelined
-    train step under ``opts`` (the kernels on) against K independent
-    unpipelined runs through the plain versions, per-trial learning rates
+def train_vs_sequential(cfg, opts, seq, seed, dev, card, hp=TRAIN_HP,
+                        ref_opts=None, data_size=1):
+    """K = 2 trials, 2 stages, 2 microbatches of one row per data shard
+    (``data_size`` shards), 2 steps of the pipelined train step under
+    ``opts`` (the kernels on) against K independent unpipelined runs
+    through the plain versions (``ref_opts``; see
+    :func:`sequential_reference`), per-trial learning rates
     and weight decays ``hp``: losses, and each trial's loss on a held-out
     batch after the last update, within 2e-4; parameters within 5e-3;
     each trial's parameter change within 10 % of the sequential run's;
@@ -899,7 +993,7 @@ def train_vs_sequential(cfg, opts, seq, seed, dev, card, hp=TRAIN_HP):
     from repro_torch.tree import tree_leaves, tree_map
 
     eng = pl.EngineConfig(n_trials=2, n_microbatches=2, microbatch=1,
-                          n_stages=2)
+                          n_stages=2, data_size=data_size)
     n_steps = 2
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = pl.init_trial_params(cfg, eng, plan_stages(cfg, 2), gen,
@@ -937,7 +1031,8 @@ def train_vs_sequential(cfg, opts, seq, seed, dev, card, hp=TRAIN_HP):
     change_err, grad_err = [], []
     for k in range(eng.n_trials):
         ref_losses, ref_final, ref_params, ref_grads = sequential_reference(
-            cfg, host0, batches, eval_batch, k, dev, hp)
+            cfg, host0, batches, eval_batch, k, dev, hp, ref_opts,
+            data_size)
         grad_err.append(max(
             float((a[k] - b).abs().max()) / max(float(b.abs().max()), 1e-30)
             for a, b in zip(tree_leaves(first["grads"]),
@@ -958,7 +1053,8 @@ def train_vs_sequential(cfg, opts, seq, seed, dev, card, hp=TRAIN_HP):
         torch.cuda.empty_cache()
     rec = dict(card=card, arch=cfg.name, layers=cfg.n_layers,
                d_model=cfg.d_model, trials=eng.n_trials, stages=eng.n_stages,
-               microbatches=eng.n_microbatches, seq=seq, steps=n_steps,
+               microbatches=eng.n_microbatches, data_shards=data_size,
+               seq=seq, steps=n_steps,
                pipelined_losses=pipe_losses, pipelined_final_losses=pipe_final,
                max_loss_err=loss_err, max_param_err=param_err,
                param_change_rel_err=change_err,
@@ -992,7 +1088,9 @@ def model_flops_per_step(cfg, eng, seq):
     Mamba1's scan, 4·di·n per token (decay and input, then C·h); Mamba2's
     chunked SSD, 2·ck·nh·(n + hd) per token within its chunk of ck plus
     4·nh·hd·n for the state in and out. A hybrid arch's shared block
-    counts once per site it runs at."""
+    counts once per site it runs at. A moe layer counts its router and
+    the top_k experts a token runs through (the reference's
+    ``layer_flops_per_token``), not the capacity-padded buckets."""
     tokens = eng.n_trials * eng.n_microbatches * eng.mb_global * seq
     d, L = cfg.d_model, cfg.n_layers
     pairs = seq * (seq + 1) // 2
@@ -1016,8 +1114,28 @@ def model_flops_per_step(cfg, eng, seq):
         ssd = 2 * ck * nh * (n + hd) + 4 * nh * hd * n
         return (6 * matmul * tokens + 3 * ssd * L * tokens
                 + attn(sites) * tokens // seq)
+    if cfg.family == "moe":
+        m = cfg.moe
+        qkvo = d * cfg.head_dim * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+        matmul = L * (qkvo + d * m.n_experts
+                      + m.top_k * 3 * d * m.expert_d_ff) + head
+        return 6 * matmul * tokens + attn(L) * tokens // seq
     matmul = L * (cfg.layer_param_count() - 2 * d) + head
     return 6 * matmul * tokens + attn(L) * tokens // seq
+
+
+def moe_padded_flops_per_step(cfg, eng, seq, capacity_factor):
+    """The expert work a train step really does beyond
+    :func:`model_flops_per_step`: every routing group (one data shard's
+    rows of one slot, t tokens) runs its experts over E · C bucket rows,
+    C = max(int(cf · t · k / E), k), where the model counts t · k."""
+    m = cfg.moe
+    t = eng.microbatch * seq
+    cap = max(int(capacity_factor * t * m.top_k / m.n_experts), m.top_k)
+    groups = eng.n_trials * eng.n_microbatches * eng.data_size
+    extra = (m.n_experts * cap - t * m.top_k) * groups * cfg.n_layers
+    return model_flops_per_step(cfg, eng, seq) + 6 * 3 * cfg.d_model \
+        * m.expert_d_ff * extra
 
 
 def kernel_class(name: str) -> str:
@@ -1037,11 +1155,13 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_train_step(cfg, opts, eng, seq, dev):
+def profile_train_step(cfg, opts, eng, seq, dev, moe=False):
     """Device time by kernel class over one more train step of the planned
     gang (fresh weights from a seed; one warm step first, which allocates
     the gradient buffer): the summed durations of the step's kernels and
-    copies on the card, from a profile with CUDA activity."""
+    copies on the card, from a profile with CUDA activity. ``moe``: also
+    the busy time by region (:func:`busy_by_region`: the experts, the
+    routing and dispatch, K1, the rest)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import pipeline as pl
     from repro_torch.core.partitioner import plan_stages
@@ -1060,8 +1180,9 @@ def profile_train_step(cfg, opts, eng, seq, dev):
     hp = {"lr": [3e-3, 1.5e-3], "wd": [0.0, 0.0]}
     step(params, state, batches[0], hp, 0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with (moe_annotated() if moe else contextlib.nullcontext()), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         step(params, state, batches[1], hp, 1)
         torch.cuda.synchronize()
@@ -1070,13 +1191,17 @@ def profile_train_step(cfg, opts, eng, seq, dev):
     for name, _, ms in kernels:
         c = kernel_class(name)
         by_class[c] = by_class.get(c, 0.0) + ms
-    return dict(profiled_step_ms=1e3 * wall, device_kernels=len(kernels),
-                device_busy_ms=sum(by_class.values()),
-                busy_ms_by_class=by_class)
+    out = dict(profiled_step_ms=1e3 * wall, device_kernels=len(kernels),
+               device_busy_ms=sum(by_class.values()),
+               busy_ms_by_class=by_class)
+    if moe:
+        out["busy_ms_by_region"], out["top_routing_kernels"] = \
+            busy_by_region(prof, K1_KERNELS, "k1")
+    return out
 
 
 def selection_path(kmod, kernel_name, cfg, opts, seq, n_steps, expected_of,
-                   dev, card, profile=True):
+                   dev, card, profile=True, moe=False):
     """``run_model_selection`` as ``launch/train.py`` calls it on ``cfg``:
     2 trials, 2 stages, ``n_steps`` steps at ``seq``, fp32, the planner
     choosing the microbatch count. Asserts both trials train in one gang,
@@ -1085,8 +1210,8 @@ def selection_path(kmod, kernel_name, cfg, opts, seq, n_steps, expected_of,
     time, tokens/s, model FLOP/s, the kernel's share of step time (CUDA
     events around each launch inside the steps), peak memory beside the
     planner's estimate and, with ``profile``, a profiled step's device
-    time by kernel class (two more steps on fresh weights). Returns
-    (record, launches)."""
+    time by kernel class (two more steps on fresh weights; with ``moe``
+    also by region). Returns (record, launches)."""
     from repro_torch.core import hydra
     from repro_torch.core import pipeline as pl
     from repro_torch.core.scheduler import per_chip_bytes, state_bytes
@@ -1187,7 +1312,7 @@ def selection_path(kmod, kernel_name, cfg, opts, seq, n_steps, expected_of,
     gc.collect()
     torch.cuda.empty_cache()
     if profile:
-        prof = profile_train_step(cfg, opts, eng, seq, dev)
+        prof = profile_train_step(cfg, opts, eng, seq, dev, moe)
         prof["device_idle_share"] = 1.0 - prof["device_busy_ms"] / step_ms
         rec["profile"] = prof
     return rec, launches
@@ -2932,7 +3057,490 @@ def phase15(fa, dev, card):
     return out, dict(k1_static_prefill=k1_launches, k1_training=launches)
 
 
-PHASES = tuple(range(1, 16))
+# ---------------------------------------------------------------------------
+# Phase 16: the MoE family (granite-moe-3b-a800m; llama4-scout-17b-a16e)
+# ---------------------------------------------------------------------------
+
+GRANITE, SCOUT = "granite-moe-3b-a800m", "llama4-scout-17b-a16e"
+GRANITE_HEADS = (24, 8, 64)  # query heads, KV heads, head_dim: group 3
+# K2 at granite's serving shapes (``CASES`` rows: phase 2's original decode
+# and append sweep, then phase 5's own shapes) and K1 at its training shape
+# (a ``FLASH_CASES`` row)
+MOE_K2_CASES = [
+    ("granite_decode", 1, [0, 16, 129, 510, 1023, 1499, 1999, 2047], None,
+     0, BS, 128, True),
+    ("granite_append64", 64, [0, 100, 700, 1900], None, 0, BS, 128, True),
+    ("granite_p5_decode", 1, [140, 1055], None, 0, BS, 66, False),
+    ("granite_p5_append486", 486, [487, 0], None, 0, BS, 64, False),
+]
+MOE_K1_CASE = ("granite_train2048_hd64", 1, 2048, 2048, *GRANITE_HEADS, True,
+               0, 0)
+
+
+@contextlib.contextmanager
+def moe_annotated():
+    """Profiler ranges around every ``moe_apply`` ("moe_apply") and every
+    expert FFN inside it ("moe_experts"), recomputes included: the
+    wrappers replace the module attributes the blocks and ``moe_apply``
+    look up at call time, and are removed on exit."""
+    from torch.profiler import record_function
+    from repro_torch.models import layers as L
+
+    real_apply, real_ffn = L.moe_apply, L._expert_ffn
+
+    def apply(*a, **kw):
+        with record_function("moe_apply"):
+            return real_apply(*a, **kw)
+
+    def ffn(*a, **kw):
+        with record_function("moe_experts"):
+            return real_ffn(*a, **kw)
+
+    L.moe_apply, L._expert_ffn = apply, ffn
+    try:
+        yield
+    finally:
+        L.moe_apply, L._expert_ffn = real_apply, real_ffn
+
+
+def _finder(intervals):
+    """t -> the interval of ``intervals`` (non-nesting (start, end, ...)
+    tuples) that holds t, or None."""
+    from bisect import bisect_right
+
+    intervals = sorted(intervals, key=lambda x: x[0])
+    starts = [x[0] for x in intervals]
+
+    def find(t):
+        i = bisect_right(starts, t) - 1
+        return intervals[i] if i >= 0 and t <= intervals[i][1] else None
+    return find
+
+
+def _merged(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], b))
+        else:
+            out.append((a, b))
+    return out
+
+
+def op_regions(evs) -> dict:
+    """{correlation id: "moe_experts" or "moe_apply"} for the aten ops of
+    a profile's raw records (run under :func:`moe_annotated`) that belong
+    to a MoE region: a forward op to the innermost range it ran in, on its
+    thread (recomputes included); a backward op to the forward op whose
+    autograd node it runs in (the node's sequence number), unless it is
+    part of a recompute inside that node."""
+    from torch.autograd import DeviceType
+
+    cpu = [e for e in evs if e.device_type() == DeviceType.CPU]
+    spans = {"moe_experts": {}, "moe_apply": {}}
+    nodes = {}
+    for e in cpu:
+        name, th = e.name(), e.start_thread_id()
+        if name in spans:
+            spans[name].setdefault(th, []).append((e.start_ns(), e.end_ns()))
+        elif name.startswith("autograd::engine::evaluate_function"):
+            nodes.setdefault(th, []).append(
+                (e.start_ns(), e.end_ns(), (e.fwd_thread_id(),
+                                            e.sequence_nr())))
+    spans = {n: {th: _finder(v) for th, v in d.items()}
+             for n, d in spans.items()}
+    node_at = {th: _finder(v) for th, v in nodes.items()}
+    aten = [e for e in cpu if e.name().startswith("aten::")]
+
+    def span_region(e):
+        for name in ("moe_experts", "moe_apply"):
+            f = spans[name].get(e.start_thread_id())
+            if f and f(e.start_ns()):
+                return name
+        return None
+
+    fwd, recompute = {}, {}
+    for e in aten:
+        th = e.start_thread_id()
+        if e.sequence_nr() < 0:
+            continue
+        r = span_region(e)
+        if r:
+            fwd[(th, e.sequence_nr())] = r
+        if th in node_at and node_at[th](e.start_ns()):
+            recompute.setdefault(th, []).append((e.start_ns(), e.end_ns()))
+    recompute = {th: _finder(_merged(v)) for th, v in recompute.items()}
+    region = {}
+    for e in aten:
+        r = span_region(e)
+        th, t = e.start_thread_id(), e.start_ns()
+        if r is None and th in node_at:
+            node = node_at[th](t)
+            if node and not (th in recompute and recompute[th](t)):
+                r = fwd.get(node[2])
+        if r:
+            region[e.correlation_id()] = r
+    return region
+
+
+def busy_by_region(prof, kernel_names, kernel_label):
+    """The card's busy ms of a profile (run under :func:`moe_annotated`)
+    by region: "expert_products" (the expert FFNs' matmuls and
+    activations), "routing_dispatch" (the rest of ``moe_apply``: router,
+    softmax, sort, ranks, scatter into the buckets, gather back, aux),
+    ``kernel_label`` (kernels named by ``kernel_names``) and "rest"; and
+    the routing and dispatch's five costliest kernels by name ([name, ms,
+    launches]). Returns (ms by region, top kernels). Read from the raw
+    records: a device
+    kernel belongs to the aten op that launched it
+    (``linked_correlation_id``), whose region :func:`op_regions` gives."""
+    evs = list(prof.profiler.kineto_results.events())
+    region = op_regions(evs)
+    names = {"moe_experts": "expert_products",
+             "moe_apply": "routing_dispatch"}
+    out = {"expert_products": 0.0, "routing_dispatch": 0.0,
+           kernel_label: 0.0, "rest": 0.0}
+    routing = {}
+    for e in evs:
+        if not on_card(e):
+            continue
+        r = region.get(e.linked_correlation_id())
+        if r:
+            key = names[r]
+        elif any(k in e.name() for k in kernel_names):
+            key = kernel_label
+        else:
+            key = "rest"
+        ms = e.duration_ns() / 1e6
+        out[key] += ms
+        if key == "routing_dispatch":
+            n = e.name()[:80]
+            ms0, k0 = routing.get(n, (0.0, 0))
+            routing[n] = (ms0 + ms, k0 + 1)
+    top = sorted(([n, ms, k] for n, (ms, k) in routing.items()),
+                 key=lambda x: -x[1])[:5]
+    return out, top
+
+
+def profile_moe_call(engine, req, step_attr):
+    """{host ops, busy ms, busy ms by region, the routing's top kernels}
+    of the first ``step_attr`` call (``decode_step`` or ``append_step``)
+    while ``engine`` serves ``req`` alone for two new tokens (its prefill
+    appends, then one decode), profiled under :func:`moe_annotated`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step, out = getattr(engine, step_attr), []
+
+    def profiled(params, cache, batch):
+        if out:
+            return step(params, cache, batch)
+        with moe_annotated(), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res = step(params, cache, batch)
+            torch.cuda.synchronize()
+        by, top = busy_by_region(prof, K2_KERNELS, "k2")
+        out.append(dict(host_ops=host_ops(prof.events()),
+                        device_busy_ms=sum(by.values()),
+                        busy_ms_by_region=by, top_routing_kernels=top))
+        return res
+
+    setattr(engine, step_attr, profiled)
+    r = req.clone()
+    r.max_new_tokens = 2
+    try:
+        engine.run([r])
+    finally:
+        setattr(engine, step_attr, step)
+    assert out, f"no {step_attr} call was profiled"
+    return out[0]
+
+
+def oracle_params(cfg, params, k=0):
+    """Trial k's weights as ``lm.greedy_generate`` takes them: views of
+    the stacked tensors, the vocab padding sliced away (no copies)."""
+    from repro_torch.models import lm
+
+    p = lm.layer_slice(params, k)
+    p["embed"] = {"tok": p["embed"]["tok"][:cfg.vocab_size]}
+    p["head"] = p["head"][:, :cfg.vocab_size]
+    return p
+
+
+def phase16_serve_exact(pa, dev, card):
+    """(b) Phase 4's engine and trace on granite-moe-3b-a800m and
+    llama4-scout-17b-a16e at full width, 2 fp32 layers, 2 stages, 2 data
+    shards (each shard's rows routed alone), at the capacity factor E / k
+    (the least at which no pick is dropped: C = t): every request's greedy
+    tokens equal the single-device oracle's, and K2's launches equal calls
+    × slots × layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.partitioner import plan_stages
+    from repro_torch.models import lm
+    from repro_torch.models.layers import ModelOptions
+    from repro_torch.serve import ServeEngine, blocks_for
+
+    out = {}
+    for name in (GRANITE, SCOUT):
+        cfg = dataclasses.replace(get_config(name), n_layers=2)
+        cf = cfg.moe.n_experts / cfg.moe.top_k
+        max_seq = 80
+        eng = pl.EngineConfig(n_trials=1, n_microbatches=2, microbatch=1,
+                              n_stages=2, data_size=2, max_seq=max_seq,
+                              cache_dtype=torch.float32, prefill_chunks=2,
+                              paged=True, block_size=BS,
+                              n_blocks=4 * blocks_for(max_seq, BS))
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(1)
+        params = pl.init_trial_params(cfg, eng, plan_stages(cfg, 2), gen,
+                                      dtype=torch.float32, device=dev)
+        opts = ModelOptions(use_paged_kernel=True, moe_capacity_factor=cf)
+        reqs = trace4(cfg.vocab_size)
+        engine = ServeEngine(cfg, eng, params, opts, device=dev)
+        reset_counts(pa)
+        comps = engine.run([r.clone() for r in reqs])
+        launches = pa.launches
+        expected = engine.stats.calls * eng.n_slots * cfg.n_layers
+        assert engine.allocator.all_free()
+        p1 = oracle_params(cfg, params)
+        mismatches = 0
+        for r, c in zip(reqs, comps):
+            want = lm.greedy_generate(cfg, opts, p1, r.prompt,
+                                      r.max_new_tokens, max_seq,
+                                      torch.float32)
+            mismatches += sum(a != b for a, b in zip(c.tokens, want)) \
+                + abs(len(c.tokens) - len(want))
+        rec = dict(card=card, arch=name, layers=cfg.n_layers,
+                   d_model=cfg.d_model, experts=cfg.moe.n_experts,
+                   top_k=cfg.moe.top_k, capacity_factor=cf,
+                   heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+                   padded_vocab=eng.padded_vocab(cfg.vocab_size),
+                   requests=len(comps),
+                   tokens=sum(len(c.tokens) for c in comps),
+                   mismatches=mismatches, calls=engine.stats.calls,
+                   ticks=engine.stats.ticks, kernel_launches=launches,
+                   expected_launches=expected,
+                   max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                   / 1e9)
+        say("phase 16 (b): 2-layer fp32 engine (2 stages, 2 data shards) vs "
+            "single-device oracle:", json.dumps(rec))
+        assert mismatches == 0, f"{name}: {mismatches} tokens differ"
+        assert launches == expected > 0, (name, launches, expected)
+        out[name] = rec
+        # free the ~25 GB of llama4-scout weights before the next run
+        del engine, params, p1
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def routing_diff(cfg, opts, ref_opts, seq, seed, dev, data_size) -> int:
+    """Routing decisions (expert ids, and kept or dropped) that differ
+    between ``opts`` (K1) and ``ref_opts`` (plain attention) on
+    :func:`train_vs_sequential`'s first batch at its initial weights, over
+    every trial, microbatch, data shard and layer."""
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.partitioner import plan_stages
+    from repro_torch.data.pipeline import TrainBatches
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    eng = pl.EngineConfig(n_trials=2, n_microbatches=2, microbatch=1,
+                          n_stages=2, data_size=data_size)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = pl.init_trial_params(cfg, eng, plan_stages(cfg, 2), gen,
+                                  device=dev)
+    data = TrainBatches(cfg, eng, seq, seed=0)
+    batch = data.batch_for_step(0)
+    data.close()
+    real, seen = L.moe_apply, []
+
+    def recording(p, x, **kw):
+        _, _, idx, rank, cap = L.moe_route(
+            p["router"], x, n_experts=kw["n_experts"], top_k=kw["top_k"],
+            capacity_factor=kw["capacity_factor"], n_shards=kw["n_shards"])
+        seen[-1].append((idx, rank.reshape(idx.shape) < cap))
+        return real(p, x, **kw)
+
+    L.moe_apply = recording
+    differ = 0
+    try:
+        with torch.no_grad():
+            for k in range(eng.n_trials):
+                p = oracle_params(cfg, params, k)
+                for m in range(eng.n_microbatches):
+                    toks = torch.from_numpy(batch["tokens"][k, m]).to(dev)
+                    for ts in toks.chunk(data_size):
+                        runs = []
+                        for o in (opts, ref_opts):
+                            seen.append([])
+                            lm.forward(cfg, o, p, {"tokens": ts})
+                            runs.append(seen.pop())
+                        for (ia, ka), (ib, kb) in zip(*runs):
+                            differ += int((ia != ib).sum() + (ka != kb).sum())
+    finally:
+        L.moe_apply = real
+    return differ
+
+
+def phase16(pa, fa, ops, dev, new_flush, card):
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.layers import ModelOptions, kernel_options
+
+    out, marks, t_mark = {}, {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        marks[name] = now - t_mark[0]
+        t_mark[0] = now
+
+    # (a) K2 and K1 at granite's shapes (24 query heads on 8, head_dim 64)
+    failed, k2, k1 = [], [], []
+    gen = torch.Generator(device=dev).manual_seed(16)
+    flush = new_flush()
+    for dt in (torch.float32, torch.bfloat16):
+        for i, case in enumerate(MOE_K2_CASES):
+            rec, failure = k2_check(pa, dev, flush, card, dt, 100 + i, case,
+                                    GRANITE_HEADS)
+            if failure:
+                failed.append(failure)
+            k2.append(rec)
+            say("phase 16 (a):", json.dumps(rec))
+        rec = k1_check(fa, ops, dev, flush, card, gen, dt, MOE_K1_CASE, True,
+                       failed)
+        k1.append(rec)
+        say("phase 16 (a):", json.dumps(rec))
+    assert not failed, "phase 16 (a): " + "; ".join(failed)
+    out["a"] = dict(k2=k2, k1=k1)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("a_kernels")
+
+    # (b) serving exactness: granite and llama4-scout, 2 fp32 layers
+    out["b"] = phase16_serve_exact(pa, dev, card)
+    mark("b_serve_exact")
+
+    # (c) granite at full depth, bf16, the launcher's capacity factor
+    cfg = get_config(GRANITE)
+    opts = kernel_options(cfg, compute_dtype=torch.bfloat16,
+                          use_paged_kernel=True)
+    rec, serve_launches, ctx = paged_serve_path(pa, cfg, opts, dev, card)
+    from repro_torch.serve import ServeEngine
+    make = lambda: ServeEngine(cfg, ctx["eng"], ctx["params"], opts,
+                               device=dev)
+    req = ctx["reqs"][-1]
+    for kind in ("decode", "append"):
+        rec[f"{kind}_profile"] = profile_moe_call(make(), req, f"{kind}_step")
+    # every moe_apply of one decode call with the card's sync check armed
+    engine, real, n_checked = make(), L.moe_apply, [0]
+    step, in_decode = engine.decode_step, [False]
+
+    def armed(*a, **kw):
+        if not in_decode[0]:
+            return real(*a, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = real(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        n_checked[0] += 1
+        return res
+
+    def decode_once(params, cache, batch):
+        in_decode[0] = n_checked[0] == 0
+        try:
+            return step(params, cache, batch)
+        finally:
+            in_decode[0] = False
+
+    engine.decode_step, L.moe_apply = decode_once, armed
+    r = req.clone()
+    r.max_new_tokens = 2
+    try:
+        engine.run([r])
+    finally:
+        L.moe_apply = real
+    assert n_checked[0] == ctx["eng"].n_slots * cfg.n_layers, n_checked
+    rec["sync_free_moe_apply_calls"] = n_checked[0]
+    say("phase 16 (c): full granite-moe-3b-a800m bf16 paged serving:",
+        json.dumps(rec))
+    out["c"] = rec
+    del ctx, engine, make
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("c_serve")
+
+    # (d) training exactness at the dropless factor E / k and at the
+    # launcher's 1.25 (drops included: the same rows go to the same
+    # shards on both sides)
+    cfg = dataclasses.replace(get_config(GRANITE), n_layers=2)
+    out["d"] = {}
+    for cf in (cfg.moe.n_experts / cfg.moe.top_k, 1.25):
+        k1_opts = ModelOptions(remat=True, use_flash_kernel=True,
+                               moe_capacity_factor=cf)
+        ref = ModelOptions(moe_capacity_factor=cf)
+        try:
+            rec = train_vs_sequential(cfg, k1_opts, 512, 3, dev, card,
+                                      ref_opts=ref, data_size=2)
+        except AssertionError as e:
+            n = routing_diff(cfg, k1_opts, ref, 512, 3, dev, 2)
+            raise AssertionError(
+                f"phase 16 (d) at capacity factor {cf}: {e}; routing "
+                f"decisions differing between K1 and plain attention at "
+                f"the first step: {n}") from e
+        rec["capacity_factor"] = cf
+        out["d"][str(cf)] = rec
+        say(f"phase 16 (d): pipelined train step (K1, 2 data shards, "
+            f"factor {cf}) vs sequential runs:", json.dumps(rec))
+    mark("d_train_exact")
+
+    # (e) run_model_selection on 8 full-width layers, seq 2048, K1 fp32
+    cfg = dataclasses.replace(get_config(GRANITE), n_layers=8)
+    n_steps, seq = 3, 2048
+    opts = kernel_options(cfg, remat=True)
+
+    def expected(K, M, S):
+        # as phase 7: three forwards of every layer per (trial,
+        # microbatch) slot a step, less the layer recompute torch's
+        # checkpoint early stop skips in each stage before the last; one
+        # evaluation pass per slot
+        return n_steps * K * M * (3 * cfg.n_layers - (S - 1)) \
+            + K * M * cfg.n_layers
+
+    rec, train_launches = selection_path(
+        fa, "flash_attention_kernel", cfg, opts, seq, n_steps, expected, dev,
+        card, moe=True)
+    assert rec["variant_launches"]["fp32"] == train_launches
+    from repro_torch.core import pipeline as pl
+    eng = pl.EngineConfig(n_trials=rec["trials"],
+                          n_microbatches=rec["microbatches"],
+                          microbatch=rec["microbatch"],
+                          n_stages=rec["stages"])
+    padded = moe_padded_flops_per_step(cfg, eng, seq,
+                                       opts.moe_capacity_factor)
+    rec.update(capacity_factor=opts.moe_capacity_factor,
+               capacity_padded_flops_per_step=padded,
+               capacity_padded_share_of_fp32_peak=padded
+               / (rec["step_ms"] / 1e3) / PEAK_OPS[torch.float32])
+    by = rec["profile"]["busy_ms_by_region"]
+    busy = sum(by.values())
+    rec["moe_share_of_busy"] = ((by["expert_products"]
+                                 + by["routing_dispatch"]) / busy
+                                if busy else None)  # None: no device trace
+    say(f"phase 16 (e): gang plan K={rec['trials']} M={rec['microbatches']}"
+        f" (S={rec['stages']}, bubble {rec['bubble_fraction']:.4f})")
+    say("phase 16 (e): run_model_selection, granite-moe-3b-a800m 8 layers "
+        "fp32:", json.dumps(rec))
+    out["e"] = rec
+    mark("e_train")
+    out["seconds"] = marks
+    return out, dict(serving=serve_launches, training=train_launches)
+
+
+PHASES = tuple(range(1, 17))
 
 
 def write_json(path: str, res: dict) -> None:
@@ -3053,6 +3661,9 @@ def main(argv=None) -> int:
     if 15 in run:
         res["phase15"], p15 = phase15(fa, dev, card)
         lap(15)
+    if 16 in run:
+        res["phase16"], p16 = phase16(pa, fa, ops, dev, new_flush, card)
+        lap(16)
     res["seconds"] = dict(build=build_s, **seconds)
     say("phase seconds:", json.dumps(res["seconds"]))
     if run != set(PHASES):
@@ -3061,6 +3672,11 @@ def main(argv=None) -> int:
         say(f"partial run (phases {sorted(run)}): every phase run passed")
         return 0
     p2, p3, p8 = res["phase2"], res["phase3"], res["phase8"]
+    at_granite = {r["case"] + "/" + r["dtype"]: {
+        n: r.get(n) for n in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")}
+        for r in (*res["phase16"]["a"]["k2"], *res["phase16"]["a"]["k1"])
+        if "ms" in r}
 
     row = next(c for c in p2
                if c["case"] == "decode" and c["dtype"] == "bfloat16")
@@ -3072,11 +3688,13 @@ def main(argv=None) -> int:
                 "phase12_serve_features": pa_feature_launches,
                 "phase13_windowed": p13["k2_windowed"],
                 "phase13_split_beside_static": p13["k2_split"],
-                "phase13_planned_grid": p13["k2_planned"]}
+                "phase13_planned_grid": p13["k2_planned"],
+                "phase16_moe_serving": p16["serving"]}
     k1_paths = {"phase7_training": fa_launches,
                 "phase13_static_prefill": p13["k1_static_prefill"],
                 "phase15_hybrid_static_prefill": p15["k1_static_prefill"],
-                "phase15_hybrid_training": p15["k1_training"]}
+                "phase15_hybrid_training": p15["k1_training"],
+                "phase16_moe_training": p16["training"]}
     k3_paths = {"phase10_ssm_serving": ms_launches,
                 "phase14_ssm_training": ms_train_launches}
     kernels = {"kernels": [{
@@ -3087,7 +3705,10 @@ def main(argv=None) -> int:
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None,
+        "at_granite_shapes": {n: v for n, v in at_granite.items()
+                              if n.startswith("granite_")
+                              and "train" not in n}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:83",
@@ -3095,7 +3716,9 @@ def main(argv=None) -> int:
         "max_abs_err": frow["max_abs_err"],
         "ms": frow["ms"], "plain_ms": frow["plain_ms"],
         "bound_ms": frow["bound_ms"], "bound_by": frow["bound_by"],
-        "library_ms": frow["library_ms"]}, {
+        "library_ms": frow["library_ms"],
+        "at_granite_shapes": {n: v for n, v in at_granite.items()
+                              if "train" in n}}, {
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan.py:62",

@@ -10,10 +10,14 @@ from repro_torch.configs.base import (  # noqa: F401
     SSMConfig,
 )
 
-from repro_torch.configs import chatglm3_6b, falcon_mamba_7b, zamba2_7b
+from repro_torch.configs import (chatglm3_6b, falcon_mamba_7b,
+                                 granite_moe_3b_a800m, llama4_scout_17b_a16e,
+                                 zamba2_7b)
 
 REGISTRY = {cfg.name: cfg for cfg in (chatglm3_6b.CONFIG,
                                        falcon_mamba_7b.CONFIG,
+                                       granite_moe_3b_a800m.CONFIG,
+                                       llama4_scout_17b_a16e.CONFIG,
                                        zamba2_7b.CONFIG)}
 
 

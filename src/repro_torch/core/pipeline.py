@@ -23,7 +23,10 @@ mesh as structure inside one process on one device:
     program adds that offset before touching the pool. In training the
     shards are equal row blocks of one global microbatch, so the mean over
     all its rows is the reference's psum of per-shard means divided by the
-    data-parallel degree.
+    data-parallel degree. The MoE FFN couples the rows of a call
+    (capacity, drops, the load-balance term), so every call routes each
+    shard's rows on their own (``n_shards`` through ``lm.stack_apply``),
+    as the reference does inside ``shard_map``.
   * **gradients.** The reference differentiates *through* the scanned
     pipeline; here one ``backward()`` runs through the tick loop, so each
     trial's gradient is exactly the unpipelined one (paper desideratum D3).
@@ -246,7 +249,11 @@ def _train_loss(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
     """The tick loop of :func:`pipeline_train_loss` over per-trial
     parameter dicts (see :func:`unstack_trials`). batch: tokens / labels
     (K, M, mb_global, seq) tensors on the parameters' device. Returns the
-    (K,) per-trial losses, each the mean over its M slots."""
+    (K,) per-trial losses, each the mean over its M slots, and the (K,)
+    per-trial MoE aux: each (stage, slot) pair's sum over its real layers
+    of the mean over data shards, summed over stages and slots and
+    divided by M (the reference's psum over stages of the per-shard
+    accumulator; zero for the other families)."""
     S, K, M = eng.n_stages, eng.n_trials, eng.n_microbatches
     l_s = plan_stages(cfg, S).layers_per_stage
     tokens, labels = batch["tokens"], batch["labels"]
@@ -265,20 +272,21 @@ def _train_loss(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
         # a hybrid trial's one shared block serves every stage's sites: its
         # gradients from all stages add up in the one backward() (the
         # reference's psum over the stage axis)
-        x, _ = lm.stack_apply(
+        x, _, aux = lm.stack_apply(
             cfg, opts, p["layers"][lo:lo + l_s], x, pos=pos, mode="train",
             shared_params=p.get("shared"),
             layer_mask=[lo + i < cfg.n_layers for i in range(l_s)],
-            layer_offset=lo)
+            layer_offset=lo, n_shards=eng.data_size)
         if s == S - 1:
             return loss_fn(cfg, eng, p["final_norm"], p["head"], x,
-                           labels[k, m])
-        return x
+                           labels[k, m]), aux
+        return x, aux
 
     # the reference's tick-level remat: each (stage, slot) pair keeps only
     # its input and is recomputed in backward
     remat = opts.remat and torch.is_grad_enabled()
     losses = [[] for _ in range(K)]
+    auxes = [[] for _ in range(K)]
     acts = [None] * S  # stage s's output of the previous tick
     for t in range(eng.n_ticks):
         nxt = [None] * S
@@ -287,21 +295,27 @@ def _train_loss(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
             if not 0 <= slot < eng.n_slots:
                 continue  # fill/drain bubble: masked in the reference
             k, m = slot % K, slot // K
-            out = (checkpoint(unit, acts[s - 1] if s else None, s, k, m,
-                              use_reentrant=False, preserve_rng_state=False)
-                   if remat else unit(acts[s - 1] if s else None, s, k, m))
+            out, aux = (checkpoint(unit, acts[s - 1] if s else None, s, k,
+                                   m, use_reentrant=False,
+                                   preserve_rng_state=False)
+                        if remat else unit(acts[s - 1] if s else None, s, k,
+                                           m))
+            auxes[k].append(aux)
             if s == S - 1:
                 losses[k].append(out)
             else:
                 nxt[s] = out
         acts = nxt
-    return torch.stack([sum(ls) for ls in losses]) / M
+    return (torch.stack([sum(ls) for ls in losses]) / M,
+            torch.stack([sum(a) for a in auxes]) / M)
 
 
 def pipeline_train_loss(cfg: ArchConfig, opts: ModelOptions,
                         eng: EngineConfig, params, batch):
     """Runs the multi-trial pipelined forward; returns per-trial (loss, aux)
-    (K,) tensors (aux: the MoE term, zero for the dense family).
+    (K,) tensors (aux: the MoE load-balance term, summed over the real
+    layers of every stage, the mean over data shards, averaged over the M
+    microbatches; zero for the other families).
 
     params: the trial-stacked dict (layers (K, Lp, ...), embed/tok
     (K, Vp, D), head (K, D, Vp), final_norm (K, D)). batch: tokens / labels
@@ -310,8 +324,7 @@ def pipeline_train_loss(cfg: ArchConfig, opts: ModelOptions,
     bubble pairs are skipped. Differentiable w.r.t. ``params``.
     """
     batch = _train_batch(batch, params["final_norm"].device)
-    loss = _train_loss(cfg, opts, eng, unstack_trials(params), batch)
-    return loss, torch.zeros_like(loss)
+    return _train_loss(cfg, opts, eng, unstack_trials(params), batch)
 
 
 def _train_batch(batch, device):
@@ -355,10 +368,13 @@ def make_train_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
     opt_state, metrics): one ``backward()`` through the whole tick
     schedule, the per-trial global grad norm, then the optimizer's
     per-trial update — params and opt_state are updated in place and
-    returned. ``hparams`` holds (K,) per-trial hyperparameters (Hydra's
-    model-selection axis); metrics {"loss", "grad_norm"} are (K,) numpy
-    arrays. The gradient buffer (one per parameter leaf) is allocated at
-    the first call and reused.
+    returned. The objective is ``Σ_k (loss_k + coef · aux_k)`` for the moe
+    family (the reference's: no ``/ n_layers`` here, unlike
+    ``lm.loss_fn``), the CE alone otherwise; ``metrics["loss"]`` is the CE
+    alone, as in the reference. ``hparams`` holds (K,) per-trial
+    hyperparameters (Hydra's model-selection axis); metrics {"loss",
+    "grad_norm"} are (K,) numpy arrays. The gradient buffer (one per
+    parameter leaf) is allocated at the first call and reused.
     """
     bufs = {}
 
@@ -369,9 +385,12 @@ def make_train_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
         for g in tree_leaves(grads):
             g.zero_()
         batch = _train_batch(batch, params["final_norm"].device)
-        loss_vec = _train_loss(cfg, opts, eng, _grad_leaves(params, grads),
-                               batch)
-        loss_vec.sum().backward()
+        loss_vec, aux_vec = _train_loss(cfg, opts, eng,
+                                        _grad_leaves(params, grads), batch)
+        total = loss_vec.sum()
+        if cfg.moe is not None:
+            total = total + cfg.moe.load_balance_coef * aux_vec.sum()
+        total.backward()
         grads, gnorm = reduce_grads(cfg, eng, grads)
         params, opt_state = optimizer.update(params, grads, opt_state,
                                              hparams, step, grad_norm=gnorm)
@@ -388,7 +407,7 @@ def make_train_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
 
 
@@ -574,7 +593,7 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
                 # inside the rope range
                 pos = torch.minimum(pos, (start + (ql - 1).clamp(min=0))
                                     [:, None])
-            y, _ = lm.stack_apply(
+            y, _, _ = lm.stack_apply(
                 cfg, opts, p_layers, x, pos=pos, mode=stack_mode, cache=c,
                 shared_params=trials[k].get("shared"),
                 layer_mask=[lo + i < cfg.n_layers for i in range(l_s)],
@@ -583,7 +602,7 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
                 window=eng.window,
                 block_tables=None if tables is None else tables[k, m],
                 write_mask=None if active is None else active[k, m],
-                q_lens=ql)
+                q_lens=ql, n_shards=eng.data_size)
             nxt[s] = y
             if s == S - 1:  # the slot drains: greedy head
                 norm_k, head_k = params["final_norm"][k], params["head"][k]

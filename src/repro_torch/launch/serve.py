@@ -27,6 +27,10 @@ or the paged KV pool, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
         --n-model 2 --slots 2 --microbatch 2 --n-requests 8 --rate 1.0 \\
         --prompt-len 1024 --gen-len 32 --dtype bfloat16
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch granite-moe-3b-a800m --paged --paged-kernel --n-model 2 \\
+        --slots 2 --microbatch 2 --n-requests 8 --prompt-len 1024 \\
+        --gen-len 32 --dtype bfloat16
 
     # the lockstep static baseline (uniform prompts; the prefill runs the
     # flash-attention kernel), sliding-window serving, a capacity-planned
@@ -64,14 +68,16 @@ adds a drafter row per target row, with weights of its own.
 on the card's memory (``--max-slots``, ``--expected-seq``,
 ``--expected-hit-rate``) and prints the plan; with explicit ``--slots``,
 ``--n-blocks 0`` backs every cell at ``max_seq``. The launcher turns the
-kernels on by family, as the train launcher does: for the attention
-family and the hybrid family's shared block (zamba2-7b, dense only; head
-dim 112) every full-sequence prefill (``--static``) goes through
+kernels on by family, as the train launcher does: for the attention and
+moe families and the hybrid family's shared block (zamba2-7b, dense only;
+head dim 112) every full-sequence prefill (``--static``) goes through
 ``kernels.ops.flash_attention``, for the ssm family (falcon-mamba-7b,
 dense only) every prefill / append scan through ``kernels.ops.mamba_scan``;
 each runs its CUDA kernel on the card and its plain PyTorch version on the
 CPU. (The hybrid backbone's Mamba2 mixer is plain PyTorch, as the
-reference's is plain jnp.)
+reference's is plain jnp.) The moe family (granite-moe-3b-a800m,
+llama4-scout-17b-a16e) routes at the reference launcher's capacity
+factor, 1.25, each data shard's rows on their own.
 """
 from __future__ import annotations
 

@@ -9,6 +9,9 @@ by default.
         --trials 2 --steps 3 --n-model 2 --seq-len 512 --n-layers 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
         --trials 2 --steps 3 --n-model 2 --seq-len 2048 --n-layers 12
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch granite-moe-3b-a800m --trials 2 --steps 3 --n-model 2 \\
+        --seq-len 2048 --n-layers 8
 
     # CPU smoke runs (plain PyTorch versions of the kernels, reduced config)
     PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \\
@@ -19,11 +22,13 @@ by default.
         --seq-len 16 --device cpu
 
 The kernels are on by family (``models.layers.kernel_options``), as in
-the serve launcher: attention — the dense family's, and the hybrid family's shared
-block — through the flash kernel (``use_flash_kernel``), the ssm family's
-selective scans through K3 (``use_mamba_kernel``; its backward is autograd
-of the plain scan, as the reference's); each the CUDA kernel on a card,
-its plain version on the CPU. ``--n-model`` stages and ``--n-data`` shards
+the serve launcher: attention — the dense and moe families', and the
+hybrid family's shared block — through the flash kernel
+(``use_flash_kernel``), the ssm family's selective scans through K3
+(``use_mamba_kernel``; its backward is autograd of the plain scan, as the
+reference's); each the CUDA kernel on a card, its plain version on the
+CPU. The moe family routes at the reference launcher's capacity factor,
+1.25, and minimises the CE plus its load-balance term. ``--n-model`` stages and ``--n-data`` shards
 run as structure inside one process. Weights are random, drawn from the
 run's seed. ``--n-layers`` cuts the depth (full-width chatglm3-6b at full
 depth needs 100 GB of fp32 state per trial; one H100 has 80 GB).

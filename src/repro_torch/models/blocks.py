@@ -1,16 +1,20 @@
-"""Attention, Mamba1 and hybrid blocks and the KV-cache ops in PyTorch.
+"""Attention, MoE, Mamba1 and hybrid blocks and the KV-cache ops in
+PyTorch.
 
 Port of ``repro/models/blocks.py`` for the dense attention family, the
-Mamba1 (``ssm``) family and the Zamba2 ``hybrid`` family (a Mamba2
-backbone plus one shared attention block applied at every
-``attn_every``-th layer). A block is one layer — pre-norm attention +
-pre-norm FFN with residuals, or a pre-norm Mamba1 / Mamba2 mixer with a
-residual — called as
+``moe`` family (attention + a top-k expert FFN), the Mamba1 (``ssm``)
+family and the Zamba2 ``hybrid`` family (a Mamba2 backbone plus one shared
+attention block applied at every ``attn_every``-th layer). A block is one
+layer — pre-norm attention + pre-norm FFN with residuals, or a pre-norm
+Mamba1 / Mamba2 mixer with a residual — called as
 
-    y, cache = block_fn(cfg, opts, p, x, pos=..., cache=..., mode=...)
+    y, cache, aux = block_fn(cfg, opts, p, x, pos=..., cache=..., mode=...)
 
-(The reference also returns an MoE auxiliary loss; these families' is
-always zero, so the port drops it until MoE is ported.)
+as in the reference: ``aux`` is the MoE block's load-balance term (a 0-d
+fp32 tensor; zero for the other families). ``n_shards`` splits the rows
+into that many contiguous data shards, each routed by the MoE FFN on its
+own (the reference routes inside ``shard_map``); the other blocks ignore
+it.
 
 Where the reference threads caches functionally (JAX returns a new pool),
 the port updates cache tensors **in place** (``index_copy_`` on the pool,
@@ -222,9 +226,13 @@ def attn_apply(cfg: ArchConfig, opts: ModelOptions, p, x, *, pos,
 # ---------------------------------------------------------------------------
 
 
+def _no_aux(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def dense_block(cfg, opts, p, x, *, pos, cache=None, kv_offset=None,
                 mode="train", window: int = 0, block_tables=None,
-                write_mask=None, q_lens=None):
+                write_mask=None, q_lens=None, n_shards: int = 1):
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     a, cache = attn_apply(cfg, opts, p["attn"], h, pos=pos, cache=cache,
                           kv_offset=kv_offset, mode=mode, window=window,
@@ -233,7 +241,27 @@ def dense_block(cfg, opts, p, x, *, pos, cache=None, kv_offset=None,
     x = x + a
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     x = x + L.mlp_apply(p["mlp"], h, cfg.act)
-    return x, cache
+    return x, cache, _no_aux(x)
+
+
+def moe_block(cfg, opts, p, x, *, pos, cache=None, kv_offset=None,
+              mode="train", window: int = 0, block_tables=None,
+              write_mask=None, q_lens=None, n_shards: int = 1):
+    """Attention then the top-k expert FFN (``layers.moe_apply``), each
+    pre-norm with a residual; the rows are routed per data shard."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    a, cache = attn_apply(cfg, opts, p["attn"], h, pos=pos, cache=cache,
+                          kv_offset=kv_offset, mode=mode, window=window,
+                          block_tables=block_tables, write_mask=write_mask,
+                          q_lens=q_lens)
+    x = x + a
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    m, aux = L.moe_apply(p["moe"], h, n_experts=cfg.moe.n_experts,
+                         top_k=cfg.moe.top_k,
+                         capacity_factor=opts.moe_capacity_factor,
+                         act=cfg.act, expert_chunk=opts.moe_expert_chunk,
+                         n_shards=n_shards)
+    return x + m, cache, aux
 
 
 def _masked_copy(dst, src, write_mask):
@@ -257,24 +285,26 @@ def _recurrent_block(mix, cfg, opts, p, x, cache, write_mask):
     if cache is not None:
         _masked_copy(cache["ssm"], new_ssm, write_mask)
         _masked_copy(cache["conv"], new_conv, write_mask)
-    return x + y, cache
+    return x + y, cache, _no_aux(x)
 
 
 def ssm_block(cfg, opts, p, x, *, pos, cache=None, kv_offset=None,
               mode="train", window: int = 0, block_tables=None,
-              write_mask=None, q_lens=None):
+              write_mask=None, q_lens=None, n_shards: int = 1):
     """Mamba1 block (falcon-mamba), cache {'ssm' (b, di, n) fp32, 'conv'
     (b, d_conv-1, di)}. (``pos`` / ``kv_offset`` / ``window`` /
-    ``block_tables`` / ``q_lens`` are accepted for signature uniformity:
-    the recurrent state is O(1) per row, not positional, and never paged;
-    ragged waves are attention-family only.)"""
+    ``block_tables`` / ``q_lens`` / ``n_shards`` are accepted for
+    signature uniformity: the recurrent state is O(1) per row, not
+    positional, and never paged; ragged waves are attention-family
+    only.)"""
     return _recurrent_block(L.mamba1_mix, cfg, opts, p, x, cache,
                             write_mask)
 
 
 def hybrid_backbone_block(cfg, opts, p, x, *, pos, cache=None,
                           kv_offset=None, mode="train", window: int = 0,
-                          block_tables=None, write_mask=None, q_lens=None):
+                          block_tables=None, write_mask=None, q_lens=None,
+                          n_shards: int = 1):
     """Zamba2 backbone layer: the Mamba2 mixer, cache {'ssm' (b, nh, hd,
     n) fp32, 'conv' (b, d_conv-1, di + 2·g·n)}; the other keywords as
     :func:`ssm_block`'s."""
@@ -297,14 +327,14 @@ def shared_attn_block(cfg, opts, p, x, *, pos, cache=None, kv_offset=None,
     return x + L.mlp_apply(p["mlp"], h, "swiglu"), cache
 
 
-BLOCK_FNS = {"dense": dense_block, "ssm": ssm_block,
+BLOCK_FNS = {"dense": dense_block, "moe": moe_block, "ssm": ssm_block,
              "hybrid": hybrid_backbone_block}
 
 
 def block_fn_for(cfg: ArchConfig):
     if cfg.family not in BLOCK_FNS:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, ssm and "
+            f"family {cfg.family!r} is not ported yet (dense, moe, ssm and "
             f"hybrid only)")
     return BLOCK_FNS[cfg.family]
 

@@ -1,10 +1,11 @@
 """Core layers in PyTorch: RMS/layer norm (and Mamba2's gated RMS norm),
 rotary embeddings (1d / 2d-half), GQA attention (flash kernel / chunked
-online-softmax / direct), the SwiGLU/GELU MLP, the Mamba1 selective-scan
-mixer and the Mamba2 (SSD) mixer.
+online-softmax / direct), the SwiGLU/GELU MLP, the top-k MoE FFN with
+capacity-bounded scatter dispatch, the Mamba1 selective-scan mixer and the
+Mamba2 (SSD) mixer.
 
-Port of ``repro/models/layers.py`` (attention family, Mamba1 and Mamba2 —
-MoE and M-RoPE wait for their slices). Functions keep the reference's
+Port of ``repro/models/layers.py`` (attention family, MoE, Mamba1 and
+Mamba2 — M-RoPE waits for its slice). Functions keep the reference's
 tensor layouts (``(b, s, h, hd)`` activations, ``(d, f)`` weights) so the
 tests compare like with like. Everything is a plain function on tensors;
 the pipeline engine stacks layers along a leading axis exactly as the
@@ -41,14 +42,19 @@ class ModelOptions:
     use_paged_kernel: bool = False  # paged decode/append attends straight
     # from the block pool (kernels/paged_attention.py) instead of gathering
     # each row's full logical K/V view
+    moe_capacity_factor: float = 1.25
+    moe_expert_chunk: int = 0  # >0: run the expert FFNs in groups of this
+    # size, each rematerialized in backward (bounds the weight-gradient
+    # transients to one group's worth)
 
 
 def kernel_options(cfg: ArchConfig, **kw) -> ModelOptions:
     """Options with the kernel of ``cfg``'s family's path on — K1
-    (``use_flash_kernel``) for the dense family's attention and the hybrid
-    family's shared block, K3 (``use_mamba_kernel``) for the ssm family's
-    scans — and ``kw`` (the launchers' choice)."""
-    return ModelOptions(use_flash_kernel=cfg.family in ("dense", "hybrid"),
+    (``use_flash_kernel``) for the dense and moe families' attention and
+    the hybrid family's shared block, K3 (``use_mamba_kernel``) for the ssm
+    family's scans — and ``kw`` (the launchers' choice)."""
+    return ModelOptions(use_flash_kernel=cfg.family in ("dense", "moe",
+                                                        "hybrid"),
                         use_mamba_kernel=cfg.family == "ssm", **kw)
 
 
@@ -281,6 +287,114 @@ def mlp_apply(p, x, act: str):
         return (F.silu(g) * u) @ p["w_down"]
     h = x @ p["w_up"]
     return F.gelu(h, approximate="tanh") @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (scatter dispatch into capacity-bounded buckets)
+# ---------------------------------------------------------------------------
+
+
+def _expert_ffn(w_gate, w_up, w_down, buckets, act: str):
+    """Dense FFN of a group of experts: buckets (e, c, d) against weights
+    (e, d, f) / (e, f, d), one batched matmul per projection."""
+    if act == "swiglu":
+        h = F.silu(torch.bmm(buckets, w_gate)) * torch.bmm(buckets, w_up)
+    else:
+        h = F.gelu(torch.bmm(buckets, w_up), approximate="tanh")
+    return torch.bmm(h, w_down)
+
+
+def moe_route(router, x, *, n_experts: int, top_k: int,
+              capacity_factor: float, n_shards: int = 1):
+    """The routing decisions of :func:`moe_apply` for x (b, s, d), each of
+    ``n_shards`` contiguous row groups on its own: fp32 softmax over the
+    router logits, top-k with ties to the lower expert id (``lax.top_k``'s
+    rule; a stable descending sort, since ``torch.topk`` promises no
+    order), gates renormalised over the k picks (floor 1e-9), and each
+    (token, pick) ranked in its expert's bucket by a cumulative count in
+    flat (t, k) order, so earlier tokens win the capacity ``C = max(int(cf
+    · t · k / E), k)``. Returns (probs (G, t, E), gates (G, t, k), expert
+    ids (G, t, k), ranks (G, t·k), C); a pick is kept where rank < C."""
+    b, s, d = x.shape
+    if b % n_shards:
+        raise ValueError(f"{b} rows do not split into {n_shards} shards")
+    t = b // n_shards * s
+    logits = (x.reshape(n_shards, t, d) @ router).float()  # (G, t, E)
+    probs = torch.softmax(logits, dim=-1)
+    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, expert_idx = vals[..., :top_k], order[..., :top_k]
+    gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+    cap = max(int(capacity_factor * t * top_k / n_experts), top_k)
+    flat_e = expert_idx.reshape(n_shards, t * top_k)
+    onehot = (flat_e[..., None] == torch.arange(n_experts, device=x.device)
+              ).to(torch.int32)  # (G, t·k, E)
+    rank = torch.cumsum(onehot, dim=1).gather(2, flat_e[..., None])[..., 0] - 1
+    return probs, gates, expert_idx, rank, cap
+
+
+def moe_apply(p, x, *, n_experts: int, top_k: int, capacity_factor: float,
+              act: str = "swiglu", expert_chunk: int = 0, n_shards: int = 1):
+    """Top-k MoE FFN. x (b, s, d) -> ((b, s, d), load-balance aux).
+
+    Each of ``n_shards`` contiguous groups of ``b / n_shards`` rows is
+    routed on its own (:func:`moe_route`), as the reference routes each
+    data shard's local rows inside ``shard_map``: its own capacity, bucket
+    ranks and drops, its own Switch aux; the shards ride a leading axis of
+    batched ops, and the aux returned is the mean over shards. Overflowing
+    picks are dropped (the residual path keeps those tokens); the expert
+    products run dense over the (E, C) buckets and the gate-weighted
+    gather brings them back, gates cast to x's dtype. Nothing here waits
+    on the host: a dropped pick is scattered into a scratch row past the
+    E · C bucket rows and gathered back from a zero row, both sliced away,
+    so no mask ever becomes an index list.
+    """
+    b, s, d = x.shape
+    g_n, e_n, k = n_shards, n_experts, top_k
+    probs, gate_vals, expert_idx, rank, cap = moe_route(
+        p["router"], x, n_experts=e_n, top_k=k,
+        capacity_factor=capacity_factor, n_shards=g_n)
+    t = b // g_n * s
+    flat_e = expert_idx.reshape(g_n, t * k)
+    rows = e_n * cap + 1  # bucket rows per shard, the scratch row last
+    dest = torch.where(rank < cap, flat_e * cap + rank,
+                       torch.full_like(rank, rows - 1))
+    dest = dest + torch.arange(g_n, device=x.device)[:, None] * rows
+    src = x.reshape(g_n, t, 1, d).expand(g_n, t, k, d).reshape(g_n * t * k, d)
+    buckets = torch.zeros((g_n * rows, d), dtype=x.dtype, device=x.device)
+    buckets = buckets.index_add(0, dest.reshape(-1), src)
+    # (G, E·C) live rows -> (E, G·C, d): one bmm per projection over all
+    # shards' buckets
+    buckets = (buckets.reshape(g_n, rows, d)[:, :-1]
+               .reshape(g_n, e_n, cap, d).transpose(0, 1)
+               .reshape(e_n, g_n * cap, d))
+    w = [p[n] for n in ("w_gate", "w_up", "w_down")] if act == "swiglu" \
+        else [None, p["w_up"], p["w_down"]]
+    if expert_chunk and 0 < expert_chunk < e_n and e_n % expert_chunk == 0:
+        record = torch.is_grad_enabled() and (
+            x.requires_grad or any(t_.requires_grad for t_ in p.values()))
+        ys = []
+        for e0 in range(0, e_n, expert_chunk):
+            part = [None if w_ is None else w_[e0:e0 + expert_chunk]
+                    for w_ in w]
+            args = (*part, buckets[e0:e0 + expert_chunk], act)
+            ys.append(checkpoint(_expert_ffn, *args, use_reentrant=False,
+                                 preserve_rng_state=False)
+                      if record else _expert_ffn(*args))
+        y = torch.cat(ys)
+    else:
+        y = _expert_ffn(*w, buckets, act)
+    y = y.reshape(e_n, g_n, cap, d).transpose(0, 1).reshape(g_n, e_n * cap, d)
+    y = torch.cat([y, y.new_zeros((g_n, 1, d))], dim=1)  # the zero row
+    gathered = y.reshape(g_n * rows, d).index_select(0, dest.reshape(-1))
+    out = torch.einsum("gtkd,gtk->gtd", gathered.reshape(g_n, t, k, d),
+                       gate_vals.to(x.dtype))
+
+    # load-balance auxiliary loss (Switch-style), per shard
+    me = probs.mean(dim=1)  # (G, E)
+    ce = torch.zeros((g_n, e_n), device=x.device).scatter_add_(
+        1, flat_e, torch.ones(flat_e.shape, device=x.device)) / (t * k)
+    aux = e_n * (me * ce).sum(dim=-1)
+    return out.reshape(b, s, d), aux.mean()
 
 
 # ---------------------------------------------------------------------------

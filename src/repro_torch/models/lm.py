@@ -1,7 +1,7 @@
 """Stacked-layer language model in PyTorch: init, forward, loss, greedy
 oracle.
 
-Port of ``repro/models/lm.py`` (dense, ssm and hybrid families). As in
+Port of ``repro/models/lm.py`` (dense, moe, ssm and hybrid families). As in
 the reference, every layer leaf carries a leading layer axis so the
 pipeline engine can run a contiguous slice of layers per stage through the
 same :func:`stack_apply`, with a per-layer validity mask for stage-padded
@@ -110,6 +110,16 @@ def _attn_params(cfg: ArchConfig, lead: tuple, nrm):
             "wo": nrm(lead + (h * hd, d), h * hd)}
 
 
+def _moe_params(cfg: ArchConfig, lead: tuple, nrm):
+    """The moe family's FFN: router (d, E), w_gate / w_up (E, d, f) and
+    w_down (E, f, d), as the reference's ``init_layer_params``."""
+    d, e, f = cfg.d_model, cfg.moe.n_experts, cfg.moe.expert_d_ff
+    return {"router": nrm(lead + (d, e), d),
+            "w_gate": nrm(lead + (e, d, f), d),
+            "w_up": nrm(lead + (e, d, f), d),
+            "w_down": nrm(lead + (e, f, d), f)}
+
+
 def _mlp_params(d: int, f: int, act: str, lead: tuple, nrm):
     if act == "swiglu":
         return {"w_gate": nrm(lead + (d, f), d),
@@ -134,7 +144,7 @@ def init_shared_params(cfg: ArchConfig, gen: torch.Generator,
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32,
                 n_layers: Optional[int] = None, device=None):
-    """Full model parameter dict (dense, ssm or hybrid family); layer
+    """Full model parameter dict (dense, moe, ssm or hybrid family); layer
     leaves get a leading ``n_layers`` axis (``n_layers`` may exceed
     ``cfg.n_layers`` — stage padding; padded layers are masked at apply
     time); hybrid archs add the ``"shared"`` block. Draws from the torch
@@ -142,7 +152,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32,
     differ from the reference's ``jax.random`` init, so cross-framework
     tests load the reference's weights with :func:`params_from_numpy`
     instead."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     nl = n_layers or cfg.n_layers
     d = cfg.d_model
@@ -154,11 +164,13 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32,
     elif cfg.family == "hybrid":
         layers = _hybrid_layers(cfg, nl, nrm, ones, gen, dtype, device)
         embed = nrm((cfg.vocab_size, d), 1)
-    else:  # (draw order: MLP, embedding, attention)
-        mlp = _mlp_params(d, cfg.d_ff, cfg.act, (nl,), nrm)
+    else:  # (draw order: MLP or experts, embedding, attention)
+        ffn_name = "moe" if cfg.family == "moe" else "mlp"
+        ffn = (_moe_params(cfg, (nl,), nrm) if cfg.family == "moe"
+               else _mlp_params(d, cfg.d_ff, cfg.act, (nl,), nrm))
         embed = nrm((cfg.vocab_size, d), 1)
         layers = {"attn": _attn_params(cfg, (nl,), nrm), "ln1": ones(nl, d),
-                  "ln2": ones(nl, d), "mlp": mlp}
+                  "ln2": ones(nl, d), ffn_name: ffn}
     params = {
         "embed": {"tok": embed},
         "layers": layers,
@@ -278,7 +290,7 @@ def stack_apply(cfg: ArchConfig, opts: ModelOptions, layer_params, x, *,
                 pos, mode: str = "train", cache=None, shared_params=None,
                 layer_mask=None, layer_offset: int = 0, kv_offset=None,
                 window: int = 0, block_tables=None, write_mask=None,
-                q_lens=None):
+                q_lens=None, n_shards: int = 1):
     """Apply a contiguous slice of the layer stack.
 
     layer_params: a list of per-layer parameter dicts (views into the
@@ -293,11 +305,14 @@ def stack_apply(cfg: ArchConfig, opts: ModelOptions, layer_params, x, *,
     ``shared_params`` (hybrid archs): after every flagged layer
     (:func:`shared_site_flags` at ``layer_offset``, the slice's first
     global layer) the shared attention block runs on that site's slot of
-    ``cache["shared"]``.
+    ``cache["shared"]``. ``n_shards``: the rows' data shards, each routed
+    on its own by the MoE blocks.
     In train mode with ``opts.remat`` each layer (with its shared block)
     is a ``torch.utils.checkpoint`` — the reference's ``jax.checkpoint``
     of the scan body: backward keeps each layer's input and recomputes
-    the rest. Returns (y, cache); cache leaves are updated in place.
+    the rest. Returns (y, cache, aux): aux is the sum of the real layers'
+    MoE load-balance terms (a 0-d fp32 tensor, zero for the other
+    families); cache leaves are updated in place.
     """
     n_local = len(layer_params)
     if layer_mask is None:
@@ -306,6 +321,7 @@ def stack_apply(cfg: ArchConfig, opts: ModelOptions, layer_params, x, *,
     remat = mode == "train" and opts.remat
     flags, slots = shared_site_flags(cfg, layer_offset, n_local)
     sh_cache = None if cache is None else cache["shared"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_local):
         if not layer_mask[i]:
             continue
@@ -316,20 +332,23 @@ def stack_apply(cfg: ArchConfig, opts: ModelOptions, layer_params, x, *,
                 if use_sh and sh_cache is not None else None)
 
         def run(x, p_i=p_i, c_i=c_i, use_sh=use_sh, sc_i=sc_i):
-            y = block(cfg, opts, p_i, x, pos=pos, cache=c_i,
-                      kv_offset=kv_offset, mode=mode, window=window,
-                      block_tables=block_tables, write_mask=write_mask,
-                      q_lens=q_lens)[0]
+            y, _, aux_i = block(cfg, opts, p_i, x, pos=pos, cache=c_i,
+                                kv_offset=kv_offset, mode=mode,
+                                window=window, block_tables=block_tables,
+                                write_mask=write_mask, q_lens=q_lens,
+                                n_shards=n_shards)
             if use_sh:
                 y = B.shared_attn_block(
                     cfg, opts, shared_params, y, pos=pos, cache=sc_i,
                     kv_offset=kv_offset, mode=mode, window=window,
                     write_mask=write_mask)[0]
-            return y
+            return y, aux_i
 
-        x = (checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
-             if remat and torch.is_grad_enabled() else run(x))
-    return x, cache
+        x, aux_i = (checkpoint(run, x, use_reentrant=False,
+                               preserve_rng_state=False)
+                    if remat and torch.is_grad_enabled() else run(x))
+        aux = aux + aux_i
+    return x, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -382,7 +401,9 @@ def default_positions(cfg: ArchConfig, batch: dict, b: int, s: int):
 def forward(cfg: ArchConfig, opts: ModelOptions, params, batch: dict,
             mode: str = "train", cache=None, kv_offset=None, window: int = 0,
             layer_mask=None):
-    """Full-model forward. Returns (logits, cache).
+    """Full-model forward. Returns (logits, cache, aux), aux the sum over
+    the real layers of the MoE load-balance term (zero for the other
+    families).
 
     ``layer_mask`` supports stage-padded stacks (leaves longer than
     cfg.n_layers); it defaults to masking exactly the real layers.
@@ -399,20 +420,24 @@ def forward(cfg: ArchConfig, opts: ModelOptions, params, batch: dict,
     if layer_mask is None:
         layer_mask = [i < cfg.n_layers for i in range(n_stack)]
     layers = [layer_slice(params["layers"], i) for i in range(n_stack)]
-    y, cache = stack_apply(cfg, opts, layers, x, pos=pos,
-                           mode=mode, cache=cache,
-                           shared_params=params.get("shared"),
-                           kv_offset=kv_offset, window=window,
-                           layer_mask=layer_mask)
-    return lm_logits(cfg, params, y), cache
+    y, cache, aux = stack_apply(cfg, opts, layers, x, pos=pos,
+                                mode=mode, cache=cache,
+                                shared_params=params.get("shared"),
+                                kv_offset=kv_offset, window=window,
+                                layer_mask=layer_mask)
+    return lm_logits(cfg, params, y), cache, aux
 
 
 def loss_fn(cfg: ArchConfig, opts: ModelOptions, params, batch: dict):
     """Mean next-token CE of a train batch ({tokens, labels[, loss_mask]})
-    through the single-device forward (the ported families have no MoE
-    aux term)."""
-    logits, _ = forward(cfg, opts, params, batch, mode="train")
-    return cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    through the single-device forward, plus for the moe family ``coef ·
+    aux / n_layers`` (the reference's normalisation here; the pipelined
+    step's differs, see ``core.pipeline.make_train_step``)."""
+    logits, _, aux = forward(cfg, opts, params, batch, mode="train")
+    loss = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.load_balance_coef * aux / max(cfg.n_layers, 1)
+    return loss
 
 
 def greedy_generate(cfg: ArchConfig, opts: ModelOptions, params, prompt,
@@ -426,11 +451,11 @@ def greedy_generate(cfg: ArchConfig, opts: ModelOptions, params, prompt,
     cache = init_cache(cfg, 1, max_seq, cache_dtype=cache_dtype,
                        n_layers=n_stack, device=device)
     toks = torch.as_tensor(np.asarray(prompt)[None], device=device)
-    logits, cache = forward(cfg, opts, params, {"tokens": toks},
-                            mode="prefill", cache=cache, window=window)
+    logits, cache, _ = forward(cfg, opts, params, {"tokens": toks},
+                               mode="prefill", cache=cache, window=window)
     out = [int(torch.argmax(logits[0, -1]))]
     for t in range(max_new_tokens - 1):
-        logits, cache = forward(
+        logits, cache, _ = forward(
             cfg, opts, params,
             {"tokens": torch.tensor([[out[-1]]], device=device)},
             mode="decode", cache=cache, window=window,

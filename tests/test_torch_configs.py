@@ -1,7 +1,8 @@
 """PyTorch port — configs: the port's ArchConfig agrees with the reference
 field by field, in its reduced() smoke form, and in param_count(), for the
-registered archs (chatglm3-6b, falcon-mamba-7b, zamba2-7b) and every reference
-arch's config logic."""
+registered archs (chatglm3-6b, falcon-mamba-7b, zamba2-7b; the MoE pair is
+held to the reference in ``test_torch_moe.py``) and every reference arch's
+config logic."""
 import dataclasses
 
 import pytest
@@ -24,7 +25,8 @@ def _port_copy(ref_cfg):
 
 def test_registry_holds_the_ported_archs():
     assert tcfg.list_archs() == ["chatglm3-6b", "falcon-mamba-7b",
-                                 "zamba2-7b"]
+                                 "granite-moe-3b-a800m",
+                                 "llama4-scout-17b-a16e", "zamba2-7b"]
     with pytest.raises(KeyError, match="unknown arch"):
         tcfg.get_config("yi-34b")
 

@@ -211,7 +211,7 @@ def test_hybrid_backbone_block_matches_reference_in_place():
         cache=_jnp(cache), mode="append")
     tc = {n: torch.from_numpy(a.copy()) for n, a in cache.items()}
     wm = torch.tensor([True, False])  # row 1 rides along: states untouched
-    yt, tc2 = TB.hybrid_backbone_block(
+    yt, tc2, _ = TB.hybrid_backbone_block(
         cfg_t, TOpts(), pt, torch.from_numpy(x), pos=None, cache=tc,
         mode="append", write_mask=wm)
     assert tc2 is tc and _err(yj, yt) < TOL
@@ -293,7 +293,8 @@ def test_forward_prefill_decode_and_greedy_match_reference():
     toks = rng.integers(0, cfg_j.vocab_size, (2, 21)).astype(np.int32)
     lj, _, _ = jlm.forward(cfg_j, JOpts(), _jnp(p),
                            {"tokens": jnp.asarray(toks)})
-    lt, _ = tlm.forward(cfg_t, TOpts(), pt, {"tokens": torch.from_numpy(toks)})
+    lt, _, _ = tlm.forward(cfg_t, TOpts(), pt,
+                           {"tokens": torch.from_numpy(toks)})
     assert _err(lj, lt) < TOL
     # prefill 9 tokens, then decode 12 one at a time: logits and caches
     jc = jlm.init_cache(cfg_j, 2, 24, cache_dtype=jnp.float32)
@@ -301,9 +302,9 @@ def test_forward_prefill_decode_and_greedy_match_reference():
     lj, jc, _ = jlm.forward(cfg_j, JOpts(), _jnp(p),
                             {"tokens": jnp.asarray(toks[:, :9])},
                             mode="prefill", cache=jc)
-    lt, tc = tlm.forward(cfg_t, TOpts(), pt,
-                         {"tokens": torch.from_numpy(toks[:, :9])},
-                         mode="prefill", cache=tc)
+    lt, tc, _ = tlm.forward(cfg_t, TOpts(), pt,
+                            {"tokens": torch.from_numpy(toks[:, :9])},
+                            mode="prefill", cache=tc)
     assert _err(lj, lt) < TOL
     for t in range(9, 21):
         off = np.full((2,), t, np.int32)
@@ -311,10 +312,10 @@ def test_forward_prefill_decode_and_greedy_match_reference():
                                 {"tokens": jnp.asarray(toks[:, t:t + 1])},
                                 mode="decode", cache=jc,
                                 kv_offset=jnp.asarray(off))
-        lt, tc = tlm.forward(cfg_t, TOpts(), pt,
-                             {"tokens": torch.from_numpy(toks[:, t:t + 1])},
-                             mode="decode", cache=tc,
-                             kv_offset=torch.from_numpy(off))
+        lt, tc, _ = tlm.forward(cfg_t, TOpts(), pt,
+                                {"tokens": torch.from_numpy(toks[:, t:t + 1])},
+                                mode="decode", cache=tc,
+                                kv_offset=torch.from_numpy(off))
         assert _err(lj, lt) < TOL, t
     for (path, a), (_, b) in zip(tree_items(jax.tree.map(np.asarray, jc)),
                                  tree_items(tc)):
@@ -337,8 +338,8 @@ def test_sliding_window_ring_buffer_decode():
     toks = np.random.default_rng(8).integers(
         0, cfg_j.vocab_size, (2, 20)).astype(np.int32)
     w = 8
-    full, _ = tlm.forward(cfg_t, TOpts(), pt,
-                          {"tokens": torch.from_numpy(toks)}, window=w)
+    full, _, _ = tlm.forward(cfg_t, TOpts(), pt,
+                             {"tokens": torch.from_numpy(toks)}, window=w)
     fj, _, _ = jlm.forward(cfg_j, JOpts(), _jnp(p),
                            {"tokens": jnp.asarray(toks)}, window=w)
     assert _err(fj, full) < TOL
@@ -346,7 +347,7 @@ def test_sliding_window_ring_buffer_decode():
     assert cache["shared"]["k"].shape[2] == w
     errs = []
     for t in range(20):
-        ld, cache = tlm.forward(
+        ld, cache, _ = tlm.forward(
             cfg_t, TOpts(), pt, {"tokens": torch.from_numpy(toks[:, t:t + 1])},
             mode="decode", cache=cache, window=w,
             kv_offset=torch.full((2,), t, dtype=torch.int32))

@@ -194,9 +194,9 @@ def test_lm_forward_prefill_decode_matches_reference():
     jl, jcache = JLM.forward(jc, JL.ModelOptions(), params,
                              {"tokens": jnp.asarray(prompt)}, mode="prefill",
                              cache=jcache)[:2]
-    tl, tcache = TLM.forward(tc, TL.ModelOptions(), tp,
-                             {"tokens": torch.from_numpy(prompt)},
-                             mode="prefill", cache=tcache)
+    tl, tcache, _ = TLM.forward(tc, TL.ModelOptions(), tp,
+                                {"tokens": torch.from_numpy(prompt)},
+                                mode="prefill", cache=tcache)
     _close(jl, tl)
     toks = [int(jnp.argmax(jl[0, -1]))]
     for t in range(3):
@@ -205,10 +205,10 @@ def test_lm_forward_prefill_decode_matches_reference():
         jl, jcache = JLM.forward(jc, JL.ModelOptions(), params,
                                  {"tokens": jnp.asarray(tok)}, mode="decode",
                                  cache=jcache, kv_offset=jnp.asarray(off))[:2]
-        tl, tcache = TLM.forward(tc, TL.ModelOptions(), tp,
-                                 {"tokens": torch.from_numpy(tok)},
-                                 mode="decode", cache=tcache,
-                                 kv_offset=torch.from_numpy(off))
+        tl, tcache, _ = TLM.forward(tc, TL.ModelOptions(), tp,
+                                    {"tokens": torch.from_numpy(tok)},
+                                    mode="decode", cache=tcache,
+                                    kv_offset=torch.from_numpy(off))
         _close(jl, tl)
         toks.append(int(jnp.argmax(jl[0, 0])))
     assert TLM.greedy_generate(tc, TL.ModelOptions(), tp, prompt[0], 4, 16,

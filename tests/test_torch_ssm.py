@@ -146,9 +146,9 @@ def test_kernel_branch_matches_chunked_inside_model():
     pt = tlm.params_from_numpy(jax.tree.map(np.asarray, p))
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg_t.vocab_size, (2, 24)).astype(np.int32))
-    l1, _ = tlm.forward(cfg_t, TOpts(), pt, {"tokens": toks})
-    l2, _ = tlm.forward(cfg_t, TOpts(use_mamba_kernel=True), pt,
-                        {"tokens": toks})
+    l1, _, _ = tlm.forward(cfg_t, TOpts(), pt, {"tokens": toks})
+    l2, _, _ = tlm.forward(cfg_t, TOpts(use_mamba_kernel=True), pt,
+                           {"tokens": toks})
     assert _err(l1.detach(), l2.detach()) < 2e-4
 
 
@@ -165,9 +165,9 @@ def test_ssm_block_writes_masked_rows_in_place():
     cache = {"ssm": torch.from_numpy(ssm.copy()),
              "conv": torch.from_numpy(conv.copy())}
     views = dict(cache)
-    yt, ct = TB.ssm_block(cfg_t, TOpts(), pt, torch.from_numpy(x), pos=None,
-                          cache=cache, mode="append",
-                          write_mask=torch.tensor([True, False]))
+    yt, ct, _ = TB.ssm_block(cfg_t, TOpts(), pt, torch.from_numpy(x), pos=None,
+                             cache=cache, mode="append",
+                             write_mask=torch.tensor([True, False]))
     assert _err(yj, yt) < TOL
     for n in ("ssm", "conv"):
         assert ct[n] is views[n]  # updated in place
@@ -186,9 +186,9 @@ def test_forward_prefill_then_decode_matches_reference():
     ct = tlm.init_cache(cfg_t, 2, 32, cache_dtype=torch.float32)
     lj, cj, _ = jlm.forward(cfg_j, JOpts(), p, {"tokens": jnp.asarray(toks)},
                             mode="prefill", cache=cj)
-    lt, ct = tlm.forward(cfg_t, TOpts(), pt,
-                         {"tokens": torch.from_numpy(toks)}, mode="prefill",
-                         cache=ct)
+    lt, ct, _ = tlm.forward(cfg_t, TOpts(), pt,
+                            {"tokens": torch.from_numpy(toks)}, mode="prefill",
+                            cache=ct)
     assert _err(lj, lt) < TOL
     for t in range(3):
         nxt = np.array(jnp.argmax(lj[:, -1], -1), np.int32)[:, None]
@@ -197,9 +197,9 @@ def test_forward_prefill_then_decode_matches_reference():
                                 {"tokens": jnp.asarray(nxt)}, mode="decode",
                                 cache=cj,
                                 kv_offset=jnp.asarray(off))
-        lt, ct = tlm.forward(cfg_t, TOpts(), pt,
-                             {"tokens": torch.from_numpy(nxt)}, mode="decode",
-                             cache=ct, kv_offset=torch.from_numpy(off))
+        lt, ct, _ = tlm.forward(cfg_t, TOpts(), pt,
+                                {"tokens": torch.from_numpy(nxt)}, mode="decode",
+                                cache=ct, kv_offset=torch.from_numpy(off))
         assert _err(lj, lt) < TOL
     for n in ("ssm", "conv"):
         assert ct["layers"][n].dtype == torch.float32
