@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with a CUDA card (H100):
     python3 chip_smoke.py [--out results.json] [--phases 2,3,5]
 
 It builds the hand-written CUDA kernels from the checkout's sources (one
-nvcc per source, all started together) and runs sixteen phases, each a hard
+nvcc per source, all started together) and runs seventeen phases, each a hard
 assert; it exits 0 only if every phase passed, and exits non-zero without
 a result when no CUDA device is visible. ``--phases`` runs a subset (the
 build always runs) and then prints neither the kernels line nor the last
@@ -165,12 +165,13 @@ line.
    every reset row, shared strips included, is zero) and static serving
    (K1 in each prefill) equal the oracle; chunked prefill (4 chunks)
    equals plain prefill in tokens and caches; the train step (K1 fp32)
-   equals sequential runs by phase 6's criteria. (b) All 81 layers and
-   13 shared sites in bf16 (fp32 SSM state) on phase 5's grid and trace
-   through the dense engine: every budget met, a second run's tokens
-   equal, wall, tokens/s, ms per call, peak memory and one profiled
-   decode call; then static serving of 8 x 512-token prompts: K1's
-   launches = prefill calls x slots x 13 sites, all on the tensor cores,
+   equals sequential runs by phase 6's criteria. (b) The first 24 of the
+   81 layers (4 shared sites, every width as published) in bf16 (fp32
+   SSM state) on phase 5's grid and trace through the dense engine: every
+   budget met, a second run's tokens equal, wall, tokens/s, ms per call,
+   peak memory and one profiled decode call; then static serving of 8 x
+   512-token prompts: K1's launches = prefill calls x slots x 4 sites,
+   all on the tensor cores,
    and every K1 launch of one profiled prefill call within 2e-2 of the
    plain version. (c) ``run_model_selection`` on 12 full-width layers,
    seq 2048, 3 steps, remat, K1 fp32 at head_dim 112: K1's launches equal
@@ -199,7 +200,33 @@ line.
    fp32, factor 1.25: K1's launches equal the schedule's; what phase 7
    records, plus the capacity-padded FLOPs and the MoE share of a
    profiled step's busy time.
-17. A {"kernels": [...]} line for every ported kernel, the card line, and
+17. The remaining families. (a) K1 at bert-large's training shape (b 2,
+   seq 512, 16 heads on 16 at hd 64, non-causal; SDPA with is_causal
+   False beside it), a ragged non-causal case (sq = sk 100), musicgen-
+   medium's prefill (24 on 24, hd 64) and qwen2-vl-72b's (64 on 8, hd
+   128), with the op's gradients in fp32 (the non-causal backward
+   included); K2's decode and append64 at groups 7 (56 on 8) and 12 (48
+   on 4), hd 128; tolerances, timing and bounds as phases 2 and 3. (b)
+   Phase 4's engine and trace on yi-34b and starcoder2-15b (GELU) at 2
+   fp32 layers, 2 data shards, K2: 0 mismatches against the oracle. (c)
+   ``make_serve_step`` prefill (K1 fp32) then 16 decode calls at 2 fp32
+   layers for qwen2-vl-72b (320-token prompts, the first 256 seeded patch
+   embeddings at t 0 on a 16 x 16 (h, w) grid, then text) and
+   musicgen-medium (64 seeded frames): 0 mismatches against the
+   single-device oracle with the same embeddings and positions. (d)
+   musicgen-medium at all 48 layers in bf16: one prefill call of 8 x
+   512-token prompts (2 slots x microbatch 2 x 2 data shards), 32 decode
+   calls; tokens/s, ms per call, K1's launches (slots x layers), every
+   K1 launch of a second prefill call against the plain version, one
+   profiled decode call. (e) The train step against sequential runs by
+   phase 6's gates for bert-large (K1 non-causal) and musicgen-medium
+   (frontend batches), 2 fp32 layers, seq 512. (f) bert-large at all 24
+   layers through ``run_model_selection``: 4 trials, 2 rows a
+   microbatch, 2 stages, seq 512, 3 steps, remat, K1 fp32 non-causal;
+   what phase 7 records, the model FLOPs counting seq^2 pairs. (g) The
+   paper's MLP (mlp-1m) trained 20 steps with SGD(momentum=0.9) on the
+   card and on the CPU from the same weights: losses within 1e-5.
+18. A {"kernels": [...]} line for every ported kernel, the card line, and
    the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 from __future__ import annotations
@@ -521,8 +548,9 @@ def k1_check(fa, ops, dev, flush, card, gen, dt, case, timed, failed):
             and err < FLASH_TOL[dt]):
         failed.append(f"{name}/{dt}: max |kernel - plain| {err}")
     rec = dict(card=card, case=name, dtype=str(dt).split(".")[-1], b=b,
-               sq=sq, sk=sk, hq=hq, hkv=hkv, hd=hd, window=window,
-               kv_offset=off, max_abs_err=err, tol=FLASH_TOL[dt])
+               sq=sq, sk=sk, hq=hq, hkv=hkv, hd=hd, causal=causal,
+               window=window, kv_offset=off, max_abs_err=err,
+               tol=FLASH_TOL[dt])
     if timed:
         nbytes, ops_n, pairs = flash_work(q, k, v, **kw)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_n / PEAK_OPS[dt]
@@ -533,12 +561,12 @@ def k1_check(fa, ops, dev, flush, card, gen, dt, case, timed, failed):
             plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
                              flush),
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), flush),
+                qt, kt, vt, is_causal=causal, enable_gqa=True), flush),
             bound_ms=1e3 * max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             pairs=pairs, bytes=nbytes, ops=ops_n)
         lib = F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
         rec["library_max_abs_err"] = float(
             (lib.transpose(1, 2).float() - want.float()).abs().max())
     if dt == torch.float32:
@@ -936,16 +964,21 @@ def sequential_reference(cfg, params_host, batches, eval_batch, k, dev,
 
     def loss_of(batch):
         """(CE, objective) of one batch."""
-        fwd = dict(p, embed={"tok": p["embed"]["tok"][:v]},
+        fwd = dict(p, embed=dict(p["embed"], tok=p["embed"]["tok"][:v]),
                    head=p["head"][:, :v])
         ces, auxes = [], []
         for m in range(batch["tokens"].shape[1]):
-            toks = torch.from_numpy(batch["tokens"][k, m]).to(dev)
-            lbls = torch.from_numpy(batch["labels"][k, m]).to(dev)
-            for ts, ls in zip(toks.chunk(n_shards), lbls.chunk(n_shards)):
-                logits, _, aux = lm.forward(cfg, ref_opts, fwd,
-                                            {"tokens": ts})
-                ces.append(lm.cross_entropy(logits, ls))
+            # each data shard's rows alone (frontend embeddings along
+            # rows; M-RoPE positions (3, mbg, seq) along their axis 1)
+            sub = {n: torch.from_numpy(np.ascontiguousarray(
+                batch[n][k, m])).to(dev).chunk(n_shards,
+                                               dim=int(n == "mrope_pos"))
+                for n in ("tokens", "labels", "frontend_embeds",
+                          "mrope_pos") if n in batch}
+            for i in range(n_shards):
+                shard = {n: c[i] for n, c in sub.items()}
+                logits, _, aux = lm.forward(cfg, ref_opts, fwd, shard)
+                ces.append(lm.cross_entropy(logits, shard["labels"]))
                 auxes.append(aux)
         ce = sum(ces) / len(ces)
         if cfg.moe is None:
@@ -997,7 +1030,7 @@ def train_vs_sequential(cfg, opts, seq, seed, dev, card, hp=TRAIN_HP,
     n_steps = 2
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = pl.init_trial_params(cfg, eng, plan_stages(cfg, 2), gen,
-                                  device=dev)
+                                  device=dev, max_pos=seq)
     host0 = tree_map(lambda t: t.to("cpu", copy=True), params)
     data = TrainBatches(cfg, eng, seq, seed=0)
     # the last batch is held out: both runs' losses after the last update
@@ -1084,7 +1117,8 @@ def phase6(dev, card):
 def model_flops_per_step(cfg, eng, seq):
     """Model FLOPs of one train step (no remat recompute counted): 6 per
     matmul weight per token (forward + backward), plus 3 times each
-    forward's other work: attention's 4·hd·hq per attended causal pair;
+    forward's other work: attention's 4·hd·hq per attended pair (causal,
+    or all seq² for the encoder);
     Mamba1's scan, 4·di·n per token (decay and input, then C·h); Mamba2's
     chunked SSD, 2·ck·nh·(n + hd) per token within its chunk of ck plus
     4·nh·hd·n for the state in and out. A hybrid arch's shared block
@@ -1093,7 +1127,8 @@ def model_flops_per_step(cfg, eng, seq):
     ``layer_flops_per_token``), not the capacity-padded buckets."""
     tokens = eng.n_trials * eng.n_microbatches * eng.mb_global * seq
     d, L = cfg.d_model, cfg.n_layers
-    pairs = seq * (seq + 1) // 2
+    # causal: seq (seq + 1) / 2 pairs a sequence; the encoder attends all
+    pairs = seq * seq if cfg.family == "encoder" else seq * (seq + 1) // 2
     attn = lambda n: 3 * 4 * cfg.head_dim * cfg.n_heads * pairs * n
     head = d * cfg.vocab_size
     if cfg.family == "ssm":
@@ -1170,14 +1205,15 @@ def profile_train_step(cfg, opts, eng, seq, dev, moe=False):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     params = pl.init_trial_params(cfg, eng, plan_stages(cfg, eng.n_stages),
-                                  gen, device=dev)
+                                  gen, device=dev, max_pos=seq)
     opt = AdamW(grad_clip=1.0)
     state = opt.init(params)
     step = pl.make_train_step(cfg, opts, eng, opt)
     data = TrainBatches(cfg, eng, seq, seed=0)
     batches = [data.batch_for_step(i) for i in range(2)]
     data.close()
-    hp = {"lr": [3e-3, 1.5e-3], "wd": [0.0, 0.0]}
+    hp = {"lr": [3e-3 * 0.5 ** i for i in range(eng.n_trials)],
+          "wd": [0.0] * eng.n_trials}
     step(params, state, batches[0], hp, 0)
     torch.cuda.synchronize()
     with (moe_annotated() if moe else contextlib.nullcontext()), \
@@ -1201,10 +1237,12 @@ def profile_train_step(cfg, opts, eng, seq, dev, moe=False):
 
 
 def selection_path(kmod, kernel_name, cfg, opts, seq, n_steps, expected_of,
-                   dev, card, profile=True, moe=False):
+                   dev, card, profile=True, moe=False, n_trials=2,
+                   microbatch=1):
     """``run_model_selection`` as ``launch/train.py`` calls it on ``cfg``:
-    2 trials, 2 stages, ``n_steps`` steps at ``seq``, fp32, the planner
-    choosing the microbatch count. Asserts both trials train in one gang,
+    ``n_trials`` trials, 2 stages, ``microbatch`` rows a slot, ``n_steps``
+    steps at ``seq``, fp32, the planner choosing the microbatch count.
+    Asserts every trial trains in one gang,
     the kernel's launches (``kmod``, wrapper ``kernel_name``) equal
     ``expected_of(K, M, S)``, 0 restarts and finite losses; records step
     time, tokens/s, model FLOP/s, the kernel's share of step time (CUDA
@@ -1218,10 +1256,11 @@ def selection_path(kmod, kernel_name, cfg, opts, seq, n_steps, expected_of,
     from repro_torch.core.trials import grid_search
     from repro_torch.obs.tracer import Tracer
 
-    base = pl.EngineConfig(n_trials=2, n_microbatches=4, microbatch=1,
-                           n_stages=2)
+    base = pl.EngineConfig(n_trials=n_trials, n_microbatches=4,
+                           microbatch=microbatch, n_stages=2)
     hc = hydra.HydraConfig(seq_len=seq, steps=n_steps)
-    trials = grid_search(cfg.name, [3e-3 * 0.5 ** i for i in range(2)])
+    trials = grid_search(cfg.name,
+                         [3e-3 * 0.5 ** i for i in range(n_trials)])
 
     step_s, in_step, events = [], [False], []
     real_make, real_kernel = pl.make_train_step, getattr(kmod, kernel_name)
@@ -1270,14 +1309,14 @@ def selection_path(kmod, kernel_name, cfg, opts, seq, n_steps, expected_of,
             and e["name"] == "gang"]
     ends = [e for e in tracer.events if e["ev"] == "span_end"
             and e["name"] == "gang"]
-    assert len(gang) == 1 and gang[0]["n_trials"] == 2, gang
+    assert len(gang) == 1 and gang[0]["n_trials"] == n_trials, gang
     K, M = gang[0]["n_trials"], gang[0]["n_microbatches"]
     S, L = base.n_stages, cfg.n_layers
     expected = expected_of(K, M, S)
     assert launches == expected > 0, (launches, expected)
     assert [e["restarts"] for e in ends] == [0], ends
     res = out["all"]
-    assert len(res) == 2 and all(np.isfinite(r.train_loss)
+    assert len(res) == n_trials and all(np.isfinite(r.train_loss)
                                  and np.isfinite(r.val_loss) for r in res)
     eng = dataclasses.replace(base, n_trials=K, n_microbatches=M)
     steady = step_s[1:]
@@ -2869,10 +2908,16 @@ def phase15_exact(fa, dev, card):
     return runs
 
 
+# phase 15 (b)'s depth: zamba2-7b's first 24 of 81 layers (4 shared
+# sites), every width as published; all 81 took 94-104 s of the 1200 s
+# budget, which phase 17 needs
+P15B_LAYERS = 24
+
+
 def phase15(fa, dev, card):
-    """The hybrid family: (a) :func:`phase15_exact`; (b) serving full
-    zamba2-7b (81 layers, 13 shared sites) in bf16 through the dense
-    engine on phase 5's grid and trace, then static serving of 8 x
+    """The hybrid family: (a) :func:`phase15_exact`; (b) serving zamba2-7b
+    cut to ``P15B_LAYERS`` layers (4 shared sites) in bf16 through the
+    dense engine on phase 5's grid and trace, then static serving of 8 x
     512-token prompts with K1 at head_dim 112 in each prefill call, every
     K1 launch of one profiled prefill call against the plain version;
     (c) ``run_model_selection`` on 12 full-width layers, seq 2048, K1 fp32
@@ -2900,10 +2945,12 @@ def phase15(fa, dev, card):
     torch.cuda.empty_cache()
     mark("a_exactness")
 
-    # (b) all 81 layers in bf16, phase 5's grid and traffic
-    cfg = get_config("zamba2-7b")
+    # (b) P15B_LAYERS of the 81 layers in bf16, phase 5's grid and traffic
+    cfg = dataclasses.replace(get_config("zamba2-7b"), n_layers=P15B_LAYERS)
     bf16 = torch.bfloat16
     sites = sum(lm.shared_site_flags(cfg, 0, cfg.n_layers)[0])
+    say(f"phase 15 (b): zamba2-7b cut to {cfg.n_layers} of 81 layers "
+        f"({sites} shared sites), every width as published")
     gen_len, max_seq = 32, 1024 + 32
     t0 = time.perf_counter()
     eng, opts, params, make = dense_engine(cfg, bf16, dev, 0, max_seq)
@@ -2971,8 +3018,8 @@ def phase15(fa, dev, card):
         decode_device_idle_share=(None if busy_ms is None
                                   else 1.0 - busy_ms / decode_ms),
         param_init_s=init_s, ttft_p50_ticks=st.summary().get("ttft_p50"))
-    say("phase 15 (b): full zamba2-7b bf16 dense serving:",
-        json.dumps(serve))
+    say(f"phase 15 (b): zamba2-7b ({cfg.n_layers} layers) bf16 dense "
+        f"serving:", json.dumps(serve))
 
     # static serving of 8 x 512-token prompts: K1 (bf16, head_dim 112) in
     # every prefill call, 13 sites a slot
@@ -3026,8 +3073,8 @@ def phase15(fa, dev, card):
         k1_variant_launches=k1_variants, k1_prefill=k1_rec,
         requests=len(sreqs), prompt_len=plen)
     out["b"] = dict(dense=serve, static=static)
-    say("phase 15 (b): full zamba2-7b bf16 static serving (K1 hd 112):",
-        json.dumps(static))
+    say(f"phase 15 (b): zamba2-7b ({cfg.n_layers} layers) bf16 static "
+        f"serving (K1 hd 112):", json.dumps(static))
     del params, cache, batch, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -3261,76 +3308,85 @@ def oracle_params(cfg, params, k=0):
     from repro_torch.models import lm
 
     p = lm.layer_slice(params, k)
-    p["embed"] = {"tok": p["embed"]["tok"][:cfg.vocab_size]}
+    p["embed"] = dict(p["embed"], tok=p["embed"]["tok"][:cfg.vocab_size])
     p["head"] = p["head"][:, :cfg.vocab_size]
     return p
 
 
-def phase16_serve_exact(pa, dev, card):
-    """(b) Phase 4's engine and trace on granite-moe-3b-a800m and
-    llama4-scout-17b-a16e at full width, 2 fp32 layers, 2 stages, 2 data
-    shards (each shard's rows routed alone), at the capacity factor E / k
-    (the least at which no pick is dropped: C = t): every request's greedy
-    tokens equal the single-device oracle's, and K2's launches equal calls
-    × slots × layers."""
-    from repro_torch.configs import get_config
+def paged_engine_exact(pa, cfg, opts, dev, card, label, extra=None):
+    """Phase 4's engine and trace on ``cfg`` at full width (the caller
+    cuts the depth), fp32 weights and pool, 2 stages, 2 data shards, K2
+    under ``opts``: every request's greedy tokens equal the single-device
+    oracle's, and K2's launches equal calls × slots × layers. Prints and
+    returns the record (with ``extra`` in it), and frees the weights."""
     from repro_torch.core import pipeline as pl
     from repro_torch.core.partitioner import plan_stages
     from repro_torch.models import lm
-    from repro_torch.models.layers import ModelOptions
     from repro_torch.serve import ServeEngine, blocks_for
+
+    max_seq = 80
+    eng = pl.EngineConfig(n_trials=1, n_microbatches=2, microbatch=1,
+                          n_stages=2, data_size=2, max_seq=max_seq,
+                          cache_dtype=torch.float32, prefill_chunks=2,
+                          paged=True, block_size=BS,
+                          n_blocks=4 * blocks_for(max_seq, BS))
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = pl.init_trial_params(cfg, eng, plan_stages(cfg, 2), gen,
+                                  dtype=torch.float32, device=dev,
+                                  max_pos=max_seq)
+    reqs = trace4(cfg.vocab_size)
+    engine = ServeEngine(cfg, eng, params, opts, device=dev)
+    reset_counts(pa)
+    comps = engine.run([r.clone() for r in reqs])
+    launches = pa.launches
+    expected = engine.stats.calls * eng.n_slots * cfg.n_layers
+    assert engine.allocator.all_free()
+    p1 = oracle_params(cfg, params)
+    mismatches = 0
+    for r, c in zip(reqs, comps):
+        want = lm.greedy_generate(cfg, opts, p1, r.prompt, r.max_new_tokens,
+                                  max_seq, torch.float32)
+        mismatches += sum(a != b for a, b in zip(c.tokens, want)) \
+            + abs(len(c.tokens) - len(want))
+    rec = dict(card=card, arch=cfg.name, layers=cfg.n_layers,
+               d_model=cfg.d_model, **(extra or {}),
+               heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+               padded_vocab=eng.padded_vocab(cfg.vocab_size),
+               requests=len(comps), tokens=sum(len(c.tokens) for c in comps),
+               mismatches=mismatches, calls=engine.stats.calls,
+               ticks=engine.stats.ticks, kernel_launches=launches,
+               expected_launches=expected,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 1e9)
+    say(f"{label}: 2-layer fp32 engine (2 stages, 2 data shards) vs "
+        f"single-device oracle:", json.dumps(rec))
+    assert mismatches == 0, f"{cfg.name}: {mismatches} tokens differ"
+    assert launches == expected > 0, (cfg.name, launches, expected)
+    del engine, params, p1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase16_serve_exact(pa, dev, card):
+    """(b) :func:`paged_engine_exact` on granite-moe-3b-a800m and
+    llama4-scout-17b-a16e at 2 layers (each data shard's rows routed
+    alone), at the capacity factor E / k (the least at which no pick is
+    dropped: C = t); llama4-scout's ~25 GB of weights are freed before
+    the next run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import ModelOptions
 
     out = {}
     for name in (GRANITE, SCOUT):
         cfg = dataclasses.replace(get_config(name), n_layers=2)
         cf = cfg.moe.n_experts / cfg.moe.top_k
-        max_seq = 80
-        eng = pl.EngineConfig(n_trials=1, n_microbatches=2, microbatch=1,
-                              n_stages=2, data_size=2, max_seq=max_seq,
-                              cache_dtype=torch.float32, prefill_chunks=2,
-                              paged=True, block_size=BS,
-                              n_blocks=4 * blocks_for(max_seq, BS))
-        torch.cuda.reset_peak_memory_stats()
-        gen = torch.Generator(device=dev).manual_seed(1)
-        params = pl.init_trial_params(cfg, eng, plan_stages(cfg, 2), gen,
-                                      dtype=torch.float32, device=dev)
         opts = ModelOptions(use_paged_kernel=True, moe_capacity_factor=cf)
-        reqs = trace4(cfg.vocab_size)
-        engine = ServeEngine(cfg, eng, params, opts, device=dev)
-        reset_counts(pa)
-        comps = engine.run([r.clone() for r in reqs])
-        launches = pa.launches
-        expected = engine.stats.calls * eng.n_slots * cfg.n_layers
-        assert engine.allocator.all_free()
-        p1 = oracle_params(cfg, params)
-        mismatches = 0
-        for r, c in zip(reqs, comps):
-            want = lm.greedy_generate(cfg, opts, p1, r.prompt,
-                                      r.max_new_tokens, max_seq,
-                                      torch.float32)
-            mismatches += sum(a != b for a, b in zip(c.tokens, want)) \
-                + abs(len(c.tokens) - len(want))
-        rec = dict(card=card, arch=name, layers=cfg.n_layers,
-                   d_model=cfg.d_model, experts=cfg.moe.n_experts,
-                   top_k=cfg.moe.top_k, capacity_factor=cf,
-                   heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
-                   padded_vocab=eng.padded_vocab(cfg.vocab_size),
-                   requests=len(comps),
-                   tokens=sum(len(c.tokens) for c in comps),
-                   mismatches=mismatches, calls=engine.stats.calls,
-                   ticks=engine.stats.ticks, kernel_launches=launches,
-                   expected_launches=expected,
-                   max_memory_allocated_gb=torch.cuda.max_memory_allocated()
-                   / 1e9)
-        say("phase 16 (b): 2-layer fp32 engine (2 stages, 2 data shards) vs "
-            "single-device oracle:", json.dumps(rec))
-        assert mismatches == 0, f"{name}: {mismatches} tokens differ"
-        assert launches == expected > 0, (name, launches, expected)
-        out[name] = rec
-        # free the ~25 GB of llama4-scout weights before the next run
-        del engine, params, p1
-        gc.collect()
-        torch.cuda.empty_cache()
+        out[name] = paged_engine_exact(
+            pa, cfg, opts, dev, card, "phase 16 (b)",
+            dict(experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                 capacity_factor=cf))
     return out
 
 
@@ -3540,7 +3596,405 @@ def phase16(pa, fa, ops, dev, new_flush, card):
     return out, dict(serving=serve_launches, training=train_launches)
 
 
-PHASES = tuple(range(1, 17))
+# ---------------------------------------------------------------------------
+# Phase 17: the remaining families (bert-large, musicgen-medium,
+# qwen2-vl-72b, yi-34b, starcoder2-15b, the paper's MLP)
+# ---------------------------------------------------------------------------
+
+BERT, MUSICGEN, QWEN = "bert-large", "musicgen-medium", "qwen2-vl-72b"
+YI, STARCODER = "yi-34b", "starcoder2-15b"
+# K1 at the new families' shapes (name, b, sq, sk, hq, hkv, hd, causal,
+# window, kv_offset): bert-large's training shape (2 rows a slot, seq 512,
+# 16 heads on 16 at hd 64, NON-causal), a ragged non-causal case (100 is
+# not a multiple of either kernel's 64-row tile), and the prefills of
+# musicgen-medium (24 on 24, hd 64) and qwen2-vl-72b (64 on 8, hd 128)
+P17_K1_CASES = [
+    ("bert_train512_noncausal", 2, 512, 512, 16, 16, 64, False, 0, 0),
+    ("noncausal_ragged_sq100", 2, 100, 100, 4, 4, 64, False, 0, 0),
+    ("musicgen_prefill512", 2, 512, 512, 24, 24, 64, True, 0, 0),
+    ("qwen2vl_prefill512", 2, 512, 512, 64, 8, 128, True, 0, 0),
+]
+P17_K1_TIMED = ("bert_train512_noncausal", "musicgen_prefill512",
+                "qwen2vl_prefill512")
+# K2 at GQA groups 7 (yi-34b: 56 query heads on 8) and 12
+# (starcoder2-15b: 48 on 4), head_dim 128: phase 2's decode and append64
+P17_K2_HEADS = {"yi34b": (56, 8, 128), "starcoder2": (48, 4, 128)}
+
+
+def phase17_kernels(pa, fa, ops, dev, flush, card):
+    """(a) K1 and K2 at the new shapes against their plain versions, as
+    phases 2 and 3 hold them (tolerances, timing, bounds, SDPA beside
+    K1, the op's gradients in fp32 — the non-causal backward included)."""
+    failed, k1, k2 = [], [], []
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for dt in (torch.float32, torch.bfloat16):
+        for case in P17_K1_CASES:
+            rec = k1_check(fa, ops, dev, flush, card, gen, dt, case,
+                           case[0] in P17_K1_TIMED, failed)
+            k1.append(rec)
+            say("phase 17 (a):", json.dumps(rec))
+        for tag, heads in P17_K2_HEADS.items():
+            for i, row in enumerate(CASES[:2]):  # decode, append64
+                rec, failure = k2_check(pa, dev, flush, card, dt, 170 + i,
+                                        (f"{tag}_{row[0]}",) + row[1:],
+                                        heads)
+                if failure:
+                    failed.append(failure)
+                k2.append(rec)
+                say("phase 17 (a):", json.dumps(rec))
+    assert not failed, "phase 17 (a): " + "; ".join(failed)
+    return dict(k1=k1, k2=k2)
+
+
+def frontend_batch(cfg, eng, plen, dtype, dev, seed):
+    """A prefill batch of a frontend arch on ``eng``'s grid: random
+    tokens, standard-normal frontend embeddings in ``dtype`` and, for
+    M-RoPE, the image-then-text grid positions (the three streams differ
+    over the image), from a numpy seed."""
+    from repro_torch.models.frontend import grid_mrope_positions
+
+    rng = np.random.default_rng(seed)
+    lead = (eng.n_trials, eng.n_microbatches, eng.mb_global)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, lead + (plen,)).astype(np.int32)).to(dev),
+        "frontend_embeds": torch.from_numpy(rng.standard_normal(
+            lead + (cfg.n_frontend_tokens, cfg.d_model),
+            dtype=np.float32)).to(dev, dtype)}
+    if cfg.rope == "mrope":
+        batch["mrope_pos"] = grid_mrope_positions(
+            cfg, eng.mb_global, plen, device=dev).expand(
+                eng.n_trials, eng.n_microbatches, 3, eng.mb_global, plen)
+    return batch
+
+
+def frontend_serve_exact(fa, name, plen, dev, card, n_dec=16):
+    """(c) A frontend arch at full width, 2 fp32 layers, through
+    ``make_serve_step``: one prefill call (K1, fp32) of 2 slots × 2 data
+    shards × 1 row, ``plen``-token prompts whose first nf positions are
+    seeded frontend embeddings (and grid M-RoPE positions), then
+    ``n_dec`` decode calls. Every row's tokens equal the single-device
+    oracle's (``lm.forward`` prefill then decode, plain attention, the
+    same embeddings and positions); K1's launches equal slots × layers.
+    Returns (record, K1 launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.partitioner import plan_stages
+    from repro_torch.models import lm
+    from repro_torch.models.layers import ModelOptions, kernel_options
+
+    cfg = dataclasses.replace(get_config(name), n_layers=2)
+    max_seq = plen + n_dec
+    eng = pl.EngineConfig(n_trials=1, n_microbatches=2, microbatch=1,
+                          n_stages=2, data_size=2, max_seq=max_seq,
+                          cache_dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(17)
+    params = pl.init_trial_params(cfg, eng, plan_stages(cfg, 2), gen,
+                                  dtype=torch.float32, device=dev,
+                                  max_pos=max_seq)
+    opts = kernel_options(cfg)
+    batch = frontend_batch(cfg, eng, plen, torch.float32, dev, 17)
+    prefill = pl.make_serve_step(cfg, opts, eng, "prefill")
+    decode = pl.make_serve_step(cfg, opts, eng, "decode")
+    cache = pl.serve_cache_struct(cfg, eng, device=dev)
+    reset_counts(fa)
+    cache, tok, _ = prefill(params, cache, batch)
+    toks = [tok]
+    for i in range(n_dec):
+        pos = torch.full(tok.shape, plen + i, dtype=torch.int32, device=dev)
+        cache, tok, _ = decode(params, cache, {"tokens": toks[-1][..., None],
+                                               "positions": pos})
+        toks.append(tok)
+    torch.cuda.synchronize()
+    launches = fa.launches
+    got = torch.stack(toks, -1)[0].cpu()  # (M, mbg, 1 + n_dec)
+    p1 = oracle_params(cfg, params)
+    mismatches, plain = 0, ModelOptions()
+    with torch.no_grad():
+        for m in range(eng.n_microbatches):
+            sub = {n: v[0, m] for n, v in batch.items()}
+            oc = lm.init_cache(cfg, eng.mb_global, max_seq,
+                               cache_dtype=torch.float32, device=dev,
+                               n_layers=lm.n_stacked_layers(p1["layers"]))
+            logits, oc, _ = lm.forward(cfg, plain, p1, sub, mode="prefill",
+                                       cache=oc)
+            want = [logits[:, -1].argmax(-1)]
+            for i in range(n_dec):
+                logits, oc, _ = lm.forward(
+                    cfg, plain, p1, {"tokens": want[-1][:, None]},
+                    mode="decode", cache=oc,
+                    kv_offset=torch.full((eng.mb_global,), plen + i,
+                                         device=dev))
+                want.append(logits[:, 0].argmax(-1))
+            mismatches += int((torch.stack(want, -1).cpu() != got[m]).sum())
+    rec = dict(card=card, arch=name, layers=cfg.n_layers,
+               d_model=cfg.d_model, params=cfg.param_count(),
+               heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+               rope=cfg.rope, frontend_tokens=cfg.n_frontend_tokens,
+               rows=eng.n_slots * eng.mb_global, prompt_len=plen,
+               decode_calls=n_dec, tokens=int(got.numel()),
+               mismatches=mismatches, k1_launches=launches,
+               expected_k1_launches=eng.n_slots * cfg.n_layers,
+               k1_variants=dict(fa.variant_launches),
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 1e9)
+    say("phase 17 (c): 2-layer fp32 make_serve_step prefill (frontend "
+        "rows, K1) + decode vs single-device oracle:", json.dumps(rec))
+    assert mismatches == 0, f"{name}: {mismatches} tokens differ"
+    assert launches == eng.n_slots * cfg.n_layers \
+        == fa.variant_launches["fp32"], (launches, fa.variant_launches)
+    del params, p1, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def musicgen_full(fa, dev, card):
+    """(d) musicgen-medium at full depth (48 layers) in bf16 through
+    ``make_serve_step``: one prefill call of 8 prompts × 512 tokens (2
+    slots × microbatch 2 × 2 data shards; the first 64 positions seeded
+    conditioning frames), then 32 decode calls, 2 stages. K1's launches
+    equal slots × layers, all on the tensor cores; a second prefill call
+    has every K1 launch held against the plain version; one decode call
+    is profiled for host ops and the card's idle share. Returns (record,
+    K1 launches of the timed prefill)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.partitioner import plan_stages
+    from repro_torch.models.layers import kernel_options
+
+    cfg, bf16 = get_config(MUSICGEN), torch.bfloat16
+    plen, n_dec = 512, 32
+    eng = pl.EngineConfig(n_trials=1, n_microbatches=2, microbatch=2,
+                          n_stages=2, data_size=2, max_seq=plen + n_dec,
+                          cache_dtype=bf16)
+    opts = kernel_options(cfg, compute_dtype=bf16)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = pl.init_trial_params(cfg, eng, plan_stages(cfg, 2), gen,
+                                  dtype=bf16, device=dev,
+                                  max_pos=eng.max_seq)
+    batch = frontend_batch(cfg, eng, plen, bf16, dev, 0)
+    prefill = pl.make_serve_step(cfg, opts, eng, "prefill")
+    decode = pl.make_serve_step(cfg, opts, eng, "decode")
+    cache = pl.serve_cache_struct(cfg, eng, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    cache, tok, _ = prefill(params, cache, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches, variants = fa.launches, dict(fa.variant_launches)
+    assert launches == eng.n_slots * cfg.n_layers == variants["mma_bf16"], \
+        (launches, variants)
+    toks, dec_s = [tok], []
+    for i in range(n_dec):
+        t = time.perf_counter()
+        pos = torch.full(tok.shape, plen + i, dtype=torch.int32, device=dev)
+        cache, tok, _ = decode(params, cache, {"tokens": toks[-1][..., None],
+                                               "positions": pos})
+        torch.cuda.synchronize()
+        dec_s.append(time.perf_counter() - t)
+        toks.append(tok)
+    wall = prefill_s + sum(dec_s)
+    peak = torch.cuda.max_memory_allocated()
+    out = torch.stack(toks, -1).cpu()
+    assert bool(((out >= 0) & (out < cfg.vocab_size)).all()), "token ids"
+    # a second prefill call: every K1 launch against the plain version
+    cache2 = pl.serve_cache_struct(cfg, eng, device=dev)
+    (cache2, tok2, _), host_p, k1_rec = k1_call_vs_plain(
+        fa, lambda: prefill(params, cache2, batch))
+    assert torch.equal(tok2.cpu(), out[..., 0]), "repeated prefill's tokens"
+    assert k1_rec["launches"] == launches
+    # one decode call, profiled
+    pos = torch.full(tok2.shape, plen, dtype=torch.int32, device=dev)
+    _, host_d, evs = profile_call(lambda: decode(
+        params, cache2, {"tokens": tok2[..., None], "positions": pos}))
+    busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3 if evs \
+        else None
+    decode_ms = 1e3 * float(np.median(dec_s))
+    prefill_ms = 1e3 * prefill_s
+    rows = eng.n_slots * eng.mb_global
+    rec = dict(
+        card=card, arch=MUSICGEN, layers=cfg.n_layers, d_model=cfg.d_model,
+        dtype="bfloat16", params=cfg.param_count(), stages=eng.n_stages,
+        slots=eng.n_microbatches, microbatch=eng.microbatch,
+        data_shards=eng.data_size, prompts=rows, prompt_len=plen,
+        frontend_tokens=cfg.n_frontend_tokens, decode_calls=n_dec,
+        tokens_generated=int(out.numel()), wall_s=wall,
+        generated_tok_per_s=out.numel() / wall,
+        prefill_tok_per_s=rows * plen / prefill_s, prefill_ms=prefill_ms,
+        decode_ms_per_call=decode_ms, decode_ms_all=[1e3 * x for x in dec_s],
+        k1_launches=launches, k1_variant_launches=variants,
+        k1_prefill=dict(k1_rec, host_ops=host_p),
+        host_ops_per_decode_call=host_d, decode_device_busy_ms=busy,
+        decode_device_idle_share=(None if busy is None
+                                  else 1.0 - busy / decode_ms),
+        max_memory_allocated_gb=peak / 1e9, param_init_s=init_s)
+    if k1_rec["device_busy_ms"] is not None:
+        rec["k1_share_of_prefill_busy"] = (k1_rec["ms_per_launch"]
+                                           * launches
+                                           / k1_rec["device_busy_ms"])
+    say("phase 17 (d): musicgen-medium 48 bf16 layers, make_serve_step "
+        "prefill + decode:", json.dumps(rec))
+    del params, cache, cache2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def mlp_sgd(dev, card, n_steps=20):
+    """(g) The paper's MLP (mlp-1m, 1,195,018 parameters) trained
+    ``n_steps`` steps with ``SGD(momentum=0.9)`` on the card and on the
+    CPU from the same weights and batches (64 rows a step, numpy-seeded):
+    losses within 1e-5 (fp32; TF32 off, as phase 1 sets it)."""
+    from repro_torch.configs import MLP_CONFIG
+    from repro_torch.models import lm
+    from repro_torch.optim import SGD
+    from repro_torch.tree import tree_leaves, tree_map
+
+    rng = np.random.default_rng(17)
+    xs = torch.from_numpy(rng.standard_normal(
+        (n_steps, 64, MLP_CONFIG.d_in), dtype=np.float32))
+    ys = torch.from_numpy(rng.integers(0, MLP_CONFIG.d_out,
+                                       (n_steps, 64)).astype(np.int64))
+    init = lm.mlp_init(MLP_CONFIG, torch.Generator().manual_seed(17))
+
+    def train(device):
+        params = tree_map(lambda t: t.to(device, copy=True)
+                          .requires_grad_(), init)
+        opt = SGD(momentum=0.9)
+        state = opt.init(params)
+        losses = []
+        t = time.perf_counter()
+        for i in range(n_steps):
+            loss = lm.mlp_loss(params, {"x": xs[i].to(device),
+                                        "y": ys[i].to(device)})
+            loss.backward()
+            grads = tree_map(lambda p: p.grad, params)
+            opt.update(params, grads, state, {"lr": [0.05]}, i)
+            for p in tree_leaves(params):
+                p.grad = None
+            losses.append(loss.item())
+        return losses, time.perf_counter() - t, params
+
+    card_losses, card_s, card_p = train(dev)
+    cpu_losses, cpu_s, cpu_p = train("cpu")
+    err = max(abs(a - b) for a, b in zip(card_losses, cpu_losses))
+    perr = max(float((a.detach().cpu() - b.detach()).abs().max())
+               for a, b in zip(tree_leaves(card_p), tree_leaves(cpu_p)))
+    rec = dict(card=card, arch="mlp-1m",
+               params=MLP_CONFIG.param_count(), steps=n_steps, rows=64,
+               momentum=0.9, lr=0.05, card_losses=card_losses,
+               cpu_losses=cpu_losses, max_loss_err=err,
+               max_param_err=perr, card_s=card_s, cpu_s=cpu_s)
+    say("phase 17 (g): mlp-1m, SGD(momentum=0.9), card vs CPU:",
+        json.dumps(rec))
+    assert all(np.isfinite(card_losses)) and err < 1e-5, err
+    assert card_losses[-1] < card_losses[0], "the MLP did not train"
+    return rec
+
+
+def phase17(pa, fa, ops, dev, new_flush, card):
+    """The remaining families: (a) :func:`phase17_kernels`; (b)
+    :func:`paged_engine_exact` on yi-34b (K2 at group 7) and
+    starcoder2-15b (GELU, group 12) at 2 layers; (c)
+    :func:`frontend_serve_exact` on qwen2-vl-72b (320-token prompts, 256
+    patches on the grid) and musicgen-medium (64 frames, 128-token
+    prompts); (d) :func:`musicgen_full`; (e) the train step against
+    sequential runs (phase 6's gates) for bert-large (K1 non-causal) and
+    musicgen-medium (frontend batches) at 2 fp32 layers, seq 512; (f)
+    bert-large at all 24 layers through ``run_model_selection``: 4 trials,
+    2 rows a microbatch, seq 512, K1 fp32 non-causal; (g) :func:`mlp_sgd`.
+    Returns (record, launch counts by path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import ModelOptions, kernel_options
+
+    out, marks, t_mark = {}, {}, [time.perf_counter()]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        now = time.perf_counter()
+        marks[name] = now - t_mark[0]
+        t_mark[0] = now
+
+    flush = new_flush()
+    out["a"] = phase17_kernels(pa, fa, ops, dev, flush, card)
+    del flush
+    mark("a_kernels")
+
+    k2_serving = 0
+    out["b"] = {}
+    for name in (YI, STARCODER):
+        cfg = dataclasses.replace(get_config(name), n_layers=2)
+        rec = paged_engine_exact(pa, cfg, ModelOptions(use_paged_kernel=True),
+                                 dev, card, "phase 17 (b)",
+                                 dict(params=cfg.param_count(), act=cfg.act))
+        out["b"][name] = rec
+        k2_serving += rec["kernel_launches"]
+    mark("b_serve_exact")
+
+    out["c"], k1_frontend = {}, 0
+    for name, plen in ((QWEN, 320), (MUSICGEN, 128)):
+        out["c"][name], n = frontend_serve_exact(fa, name, plen, dev, card)
+        k1_frontend += n
+    mark("c_frontend_exact")
+
+    out["d"], k1_musicgen = musicgen_full(fa, dev, card)
+    mark("d_musicgen_full")
+
+    out["e"] = {}
+    k1_opts = ModelOptions(remat=True, use_flash_kernel=True)
+    for name in (BERT, MUSICGEN):
+        cfg = dataclasses.replace(get_config(name), n_layers=2)
+        reset_counts(fa)
+        rec = train_vs_sequential(cfg, k1_opts, 512, 3, dev, card)
+        rec["k1_launches"] = fa.launches
+        assert fa.launches > 0, "the pipelined step launched no K1"
+        out["e"][name] = rec
+        kind = "non-causal" if cfg.family == "encoder" else "causal"
+        say(f"phase 17 (e): pipelined train step (K1 {kind}) vs "
+            f"sequential runs, {name}:", json.dumps(rec))
+    mark("e_train_exact")
+
+    cfg = get_config(BERT)
+    n_steps, seq = 3, 512
+
+    def expected(K, M, S):
+        # phase 7's count: three forwards of every layer per (trial,
+        # microbatch) slot a step, less the layer recompute torch's
+        # checkpoint early stop skips in each stage before the last; one
+        # evaluation pass per slot
+        return n_steps * K * M * (3 * cfg.n_layers - (S - 1)) \
+            + K * M * cfg.n_layers
+
+    rec, k1_bert = selection_path(fa, "flash_attention_kernel", cfg,
+                                  kernel_options(cfg, remat=True), seq,
+                                  n_steps, expected, dev, card, n_trials=4,
+                                  microbatch=2)
+    assert rec["variant_launches"]["fp32"] == k1_bert
+    say(f"phase 17 (f): gang plan K={rec['trials']} M={rec['microbatches']}"
+        f" (S={rec['stages']}, bubble {rec['bubble_fraction']:.4f})")
+    say("phase 17 (f): run_model_selection, bert-large 24 layers fp32 (K1 "
+        "non-causal):", json.dumps(rec))
+    out["f"] = rec
+    mark("f_bert_train")
+
+    out["g"] = mlp_sgd(dev, card)
+    mark("g_mlp")
+    out["seconds"] = marks
+    return out, dict(k2_dense_serving=k2_serving,
+                     k1_frontend_prefill=k1_frontend,
+                     k1_musicgen_prefill=k1_musicgen,
+                     k1_bert_training=k1_bert)
+
+
+PHASES = tuple(range(1, 18))
 
 
 def write_json(path: str, res: dict) -> None:
@@ -3664,6 +4118,9 @@ def main(argv=None) -> int:
     if 16 in run:
         res["phase16"], p16 = phase16(pa, fa, ops, dev, new_flush, card)
         lap(16)
+    if 17 in run:
+        res["phase17"], p17 = phase17(pa, fa, ops, dev, new_flush, card)
+        lap(17)
     res["seconds"] = dict(build=build_s, **seconds)
     say("phase seconds:", json.dumps(res["seconds"]))
     if run != set(PHASES):
@@ -3672,11 +4129,15 @@ def main(argv=None) -> int:
         say(f"partial run (phases {sorted(run)}): every phase run passed")
         return 0
     p2, p3, p8 = res["phase2"], res["phase3"], res["phase8"]
-    at_granite = {r["case"] + "/" + r["dtype"]: {
-        n: r.get(n) for n in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                              "bound_by", "library_ms")}
-        for r in (*res["phase16"]["a"]["k2"], *res["phase16"]["a"]["k1"])
-        if "ms" in r}
+    def timed_rows(rows):
+        return {r["case"] + "/" + r["dtype"]: {
+            n: r.get(n) for n in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}
+            for r in rows if "ms" in r}
+
+    at_granite = timed_rows((*res["phase16"]["a"]["k2"],
+                             *res["phase16"]["a"]["k1"]))
+    p17a = res["phase17"]["a"]
 
     row = next(c for c in p2
                if c["case"] == "decode" and c["dtype"] == "bfloat16")
@@ -3689,12 +4150,16 @@ def main(argv=None) -> int:
                 "phase13_windowed": p13["k2_windowed"],
                 "phase13_split_beside_static": p13["k2_split"],
                 "phase13_planned_grid": p13["k2_planned"],
-                "phase16_moe_serving": p16["serving"]}
+                "phase16_moe_serving": p16["serving"],
+                "phase17_dense_serving": p17["k2_dense_serving"]}
     k1_paths = {"phase7_training": fa_launches,
                 "phase13_static_prefill": p13["k1_static_prefill"],
                 "phase15_hybrid_static_prefill": p15["k1_static_prefill"],
                 "phase15_hybrid_training": p15["k1_training"],
-                "phase16_moe_training": p16["training"]}
+                "phase16_moe_training": p16["training"],
+                "phase17_frontend_prefill": p17["k1_frontend_prefill"],
+                "phase17_musicgen_prefill": p17["k1_musicgen_prefill"],
+                "phase17_bert_training": p17["k1_bert_training"]}
     k3_paths = {"phase10_ssm_serving": ms_launches,
                 "phase14_ssm_training": ms_train_launches}
     kernels = {"kernels": [{
@@ -3708,7 +4173,8 @@ def main(argv=None) -> int:
         "library_ms": None,
         "at_granite_shapes": {n: v for n, v in at_granite.items()
                               if n.startswith("granite_")
-                              and "train" not in n}}, {
+                              and "train" not in n},
+        "at_phase17_shapes": timed_rows(p17a["k2"])}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:83",
@@ -3718,7 +4184,8 @@ def main(argv=None) -> int:
         "bound_ms": frow["bound_ms"], "bound_by": frow["bound_by"],
         "library_ms": frow["library_ms"],
         "at_granite_shapes": {n: v for n, v in at_granite.items()
-                              if "train" in n}}, {
+                              if "train" in n},
+        "at_phase17_shapes": timed_rows(p17a["k1"])}, {
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan.py:62",

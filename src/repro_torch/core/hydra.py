@@ -58,9 +58,10 @@ class HydraRunner:
         eng = gang.engine
         plan = plan_stages(self.cfg, eng.n_stages)
         gen = torch.Generator(device=self.device).manual_seed(self.hc.seed)
+        max_pos = self.hc.seq_len if self.cfg.rope == "learned" else 0
         params = pl.init_trial_params(self.cfg, eng, plan, gen,
                                       dtype=self.hc.param_dtype,
-                                      device=self.device)
+                                      device=self.device, max_pos=max_pos)
         opt_state = self.optimizer.init(params)
         hparams = {
             "lr": torch.tensor([t.lr for t in gang.trials],

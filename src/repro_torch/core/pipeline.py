@@ -86,8 +86,9 @@ class EngineConfig:
     # swap out here instead of being destroyed; 0 = no host tier
     prefill_chunks: int = 1  # admission chunks per prompt (serve engine)
     vocab_parallel: bool = True  # train loss over S logical vocab shards
-    # (per-shard max / sum-exp, as the reference's psum form); False = one
-    # plain CE over the full head
+    # (per-shard max / sum-exp, as the reference's psum form) and the
+    # embedding's learned positions split over the stages (zero past the
+    # table); False = one plain CE over the full head, clamped positions
 
     @property
     def n_slots(self) -> int:
@@ -126,12 +127,15 @@ class EngineConfig:
 
 
 def init_trial_params(cfg: ArchConfig, eng: EngineConfig, plan: StagePlan,
-                      gen: torch.Generator, dtype=torch.float32, device=None):
+                      gen: torch.Generator, dtype=torch.float32, device=None,
+                      max_pos: int = 0):
     """K trials' parameters stacked on a leading K axis: layer leaves
     (K, Lp, ...) over the stage-padded stack, embed (K, Vp, D) and head
-    (K, D, Vp) zero-padded to a multiple of S."""
+    (K, D, Vp) zero-padded to a multiple of S; ``rope="learned"`` archs
+    get the position table embed/pos (K, max_pos, D)."""
     trials = [lm.init_params(cfg, gen, dtype=dtype,
-                             n_layers=plan.padded_layers, device=device)
+                             n_layers=plan.padded_layers, device=device,
+                             max_pos=max_pos)
               for _ in range(eng.n_trials)]
 
     params = tree_map(lambda *leaves: (leaves[0][None] if len(leaves) == 1
@@ -152,11 +156,21 @@ def init_trial_params(cfg: ArchConfig, eng: EngineConfig, plan: StagePlan,
 
 
 def vp_embed(cfg: ArchConfig, eng: EngineConfig, embed_k, tokens,
-             compute_dtype=torch.float32):
+             positions=None, compute_dtype=torch.float32):
     """Vocab-parallel embedding. The reference gathers each token's row on
     the one stage owning it and psums S−1 exact zeros onto it, so the
-    result equals a plain gather from the padded table bit for bit."""
-    return lm.embed_tokens(cfg, embed_k, tokens, compute_dtype=compute_dtype)
+    result equals a plain gather from the padded table bit for bit. Its
+    learned position table (``rope="learned"``) is split over the stages
+    the same way, so a position past the table is owned by no stage and
+    adds zero (:func:`plain_embed` clamps it to the last row instead)."""
+    x = lm.embed_tokens(cfg, embed_k, tokens, compute_dtype=compute_dtype)
+    if cfg.rope == "learned" and positions is not None:
+        tab = embed_k["pos"]
+        pos = positions.long()
+        rows = tab[pos.clamp(max=tab.shape[0] - 1)].to(x.dtype)
+        x = x + torch.where((pos < tab.shape[0])[..., None], rows,
+                            torch.zeros_like(rows))
+    return x
 
 
 def vp_greedy_tokens(cfg: ArchConfig, eng: EngineConfig, norm_p, head_k, y):
@@ -194,9 +208,11 @@ def vp_greedy_token(cfg: ArchConfig, eng: EngineConfig, norm_p, head_k, y):
 
 
 def plain_embed(cfg: ArchConfig, eng: EngineConfig, embed_k, tokens,
-                compute_dtype=torch.float32):
-    """Embedding from the full (padded) table of one trial."""
-    return lm.embed_tokens(cfg, embed_k, tokens, compute_dtype=compute_dtype)
+                positions=None, compute_dtype=torch.float32):
+    """Embedding from the full (padded) table of one trial; learned
+    positions past the table clamp to its last row."""
+    return lm.embed_tokens(cfg, embed_k, tokens, positions=positions,
+                           compute_dtype=compute_dtype)
 
 
 def vp_loss(cfg: ArchConfig, eng: EngineConfig, norm_p, head_k, y, labels):
@@ -232,7 +248,7 @@ def plain_loss(cfg: ArchConfig, eng: EngineConfig, norm_p, head_k, y,
 def unstack_trials(params):
     """The trial-stacked parameter dict -> a list over K of per-trial dicts
     whose ``"layers"`` is a list of per-layer dicts (all views)."""
-    n_k = params["final_norm"].shape[0]
+    n_k = params["embed"]["tok"].shape[0]
     n_l = tree_leaves(params["layers"])[0].shape[1]
     out = []
     for k in range(n_k):
@@ -248,7 +264,10 @@ def _train_loss(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
                 trials, batch):
     """The tick loop of :func:`pipeline_train_loss` over per-trial
     parameter dicts (see :func:`unstack_trials`). batch: tokens / labels
-    (K, M, mb_global, seq) tensors on the parameters' device. Returns the
+    (K, M, mb_global, seq) tensors on the parameters' device, plus
+    ``frontend_embeds`` (K, M, mb_global, nf, d), which replace the first
+    nf embedded rows of every slot, and the M-RoPE archs' ``mrope_pos``
+    (K, M, 3, mb_global, seq). Returns the
     (K,) per-trial losses, each the mean over its M slots, and the (K,)
     per-trial MoE aux: each (stage, slot) pair's sum over its real layers
     of the mean over data shards, summed over stages and slots and
@@ -260,20 +279,25 @@ def _train_loss(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
     mbg, seq = tokens.shape[-2], tokens.shape[-1]
     pos = torch.arange(seq, device=tokens.device).expand(mbg, seq)
     loss_fn = vp_loss if eng.vocab_parallel else plain_loss
+    embed = vp_embed if eng.vocab_parallel else plain_embed
+    fe, mrope = batch.get("frontend_embeds"), batch.get("mrope_pos")
 
     def unit(x, s, k, m):
         """One (stage, slot) pair: embed at stage 0, the stage's layers,
         the loss at the last stage."""
         p = trials[k]
         if s == 0:
-            x = plain_embed(cfg, eng, p["embed"], tokens[k, m],
-                            opts.compute_dtype)
+            x = embed(cfg, eng, p["embed"], tokens[k, m], pos,
+                      opts.compute_dtype)
+            if fe is not None:
+                x = lm.replace_frontend_rows(x, fe[k, m])
         lo = s * l_s
         # a hybrid trial's one shared block serves every stage's sites: its
         # gradients from all stages add up in the one backward() (the
         # reference's psum over the stage axis)
         x, _, aux = lm.stack_apply(
-            cfg, opts, p["layers"][lo:lo + l_s], x, pos=pos, mode="train",
+            cfg, opts, p["layers"][lo:lo + l_s], x,
+            pos=pos if mrope is None else mrope[k, m], mode="train",
             shared_params=p.get("shared"),
             layer_mask=[lo + i < cfg.n_layers for i in range(l_s)],
             layer_offset=lo, n_shards=eng.data_size)
@@ -319,19 +343,23 @@ def pipeline_train_loss(cfg: ArchConfig, opts: ModelOptions,
 
     params: the trial-stacked dict (layers (K, Lp, ...), embed/tok
     (K, Vp, D), head (K, D, Vp), final_norm (K, D)). batch: tokens / labels
-    (K, M, mb_global, seq), tensors or numpy. Each tick ``t`` advances stage
+    (K, M, mb_global, seq), tensors or numpy, with the frontend archs'
+    ``frontend_embeds`` and the M-RoPE archs' ``mrope_pos`` (see
+    :func:`_train_loss`). Each tick ``t`` advances stage
     ``s`` on slot ``t - s`` (trial ``slot % K``, microbatch ``slot // K``);
     bubble pairs are skipped. Differentiable w.r.t. ``params``.
     """
-    batch = _train_batch(batch, params["final_norm"].device)
+    batch = _train_batch(batch, params["embed"]["tok"].device)
     return _train_loss(cfg, opts, eng, unstack_trials(params), batch)
 
 
 def _train_batch(batch, device):
-    """tokens / labels (tensors or numpy) as tensors on ``device``."""
+    """tokens / labels and any frontend_embeds / mrope_pos (tensors or
+    numpy) as tensors on ``device``."""
     return {n: (batch[n] if torch.is_tensor(batch[n])
                 else torch.from_numpy(np.ascontiguousarray(batch[n])))
-            .to(device) for n in ("tokens", "labels")}
+            .to(device) for n in ("tokens", "labels", "frontend_embeds",
+                                  "mrope_pos") if n in batch}
 
 
 def _grad_leaves(params, grads):
@@ -384,7 +412,7 @@ def make_train_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
         grads = bufs["grads"]
         for g in tree_leaves(grads):
             g.zero_()
-        batch = _train_batch(batch, params["final_norm"].device)
+        batch = _train_batch(batch, params["embed"]["tok"].device)
         loss_vec, aux_vec = _train_loss(cfg, opts, eng,
                                         _grad_leaves(params, grads), batch)
         total = loss_vec.sum()
@@ -407,8 +435,9 @@ def make_train_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if cfg.family == "mlp":
+        raise ValueError("the mlp workload has no serving path (no "
+                         "sequence, no cache)")
 
 
 def shared_slots_per_stage(cfg: ArchConfig, plan: StagePlan) -> int:
@@ -487,13 +516,24 @@ def global_block_tables(eng: EngineConfig, tables):
 SERVE_MODES = ("prefill", "decode", "append", "mixed", "verify")
 
 
+def _check_mrope_mode(cfg: ArchConfig, mode: str) -> None:
+    if mode in ("append", "mixed", "verify") and cfg.rope == "mrope":
+        raise ValueError("append mode (continuous batching) does not "
+                         "support mrope archs; use the static prefill path")
+
+
 def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
                    params, cache, batch, mode: str):
     """One pipelined serving call over dense strips or the paged pool.
 
     prefill (dense only): batch = {tokens (K,M,mbg,seq)} — each slot's
     rows fill their strips from position 0 (the tail zeroed) and emit the
-    first generated token; the static lockstep path. With
+    first generated token; the static lockstep path. A frontend arch's
+    ``frontend_embeds`` (K,M,mbg,nf,d) replace each slot's first nf
+    embedded rows, and an M-RoPE arch's ``mrope_pos`` (K,M,3,mbg,seq) are
+    its rotary positions (prefill only: decode turns all three streams by
+    the row's depth, and M-RoPE archs have no append, mixed or verify
+    mode, as in the reference). With
     ``eng.prefill_chunks`` = nc > 1 the M slots are nc sequence chunks per
     request group: slot m carries chunk ``m % nc`` at positions
     ``(m % nc) · seq + arange(seq)``, and the nc chunk-slots of group
@@ -527,6 +567,7 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
         raise ValueError(f"unknown serve mode {mode!r} (one of "
                          f"{SERVE_MODES})")
     _check_family(cfg)
+    _check_mrope_mode(cfg, mode)
     if eng.paged:
         if mode == "prefill":
             raise ValueError("paged serving supports append/decode/mixed/"
@@ -557,6 +598,10 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
     out_shape = tokens.shape if mode == "verify" else tokens.shape[:3]
     tok_out = torch.zeros(out_shape, dtype=torch.int32, device=dev)
     val_out = torch.zeros(out_shape, dtype=torch.float32, device=dev)
+    fe = batch.get("frontend_embeds") if mode == "prefill" else None
+    mrope = (torch.as_tensor(batch["mrope_pos"], device=dev)
+             if mode == "prefill" and cfg.rope == "mrope" else None)
+    embed = vp_embed if eng.vocab_parallel else plain_embed
     trials = unstack_trials(params)
     acts = [None] * S  # stage s's output of the previous tick
     for t in range(eng.n_ticks):
@@ -566,11 +611,6 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
             if not 0 <= slot < eng.n_slots:
                 continue  # fill/drain bubble: masked in the reference
             k, m = slot % K, slot // K
-            if s == 0:
-                x = vp_embed(cfg, eng, {"tok": params["embed"]["tok"][k]},
-                             tokens[k, m], opts.compute_dtype)
-            else:
-                x = acts[s - 1]
             lo = s * l_s
             p_layers = trials[k]["layers"][lo:lo + l_s]
             cell = (k,) if eng.paged else (k, m // nc)
@@ -593,6 +633,18 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
                 # inside the rope range
                 pos = torch.minimum(pos, (start + (ql - 1).clamp(min=0))
                                     [:, None])
+            if s == 0:
+                x = embed(cfg, eng, trials[k]["embed"], tokens[k, m], pos,
+                          opts.compute_dtype)
+                if fe is not None:  # the prefill's frontend rows
+                    x = lm.replace_frontend_rows(
+                        x, torch.as_tensor(fe[k, m], device=dev))
+            else:
+                x = acts[s - 1]
+            if mrope is not None:
+                pos = mrope[k, m]  # (3, mbg, qlen)
+            elif cfg.rope == "mrope":  # decode: every stream at the depth
+                pos = pos.expand(3, mbg, qlen)
             y, _, _ = lm.stack_apply(
                 cfg, opts, p_layers, x, pos=pos, mode=stack_mode, cache=c,
                 shared_params=trials[k].get("shared"),
@@ -605,7 +657,8 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
                 q_lens=ql, n_shards=eng.data_size)
             nxt[s] = y
             if s == S - 1:  # the slot drains: greedy head
-                norm_k, head_k = params["final_norm"][k], params["head"][k]
+                norm_k = trials[k]["final_norm"]
+                head_k = trials[k]["head"]
                 if mode == "verify":
                     tok_out[k, m], val_out[k, m] = vp_greedy_tokens(
                         cfg, eng, norm_k, head_k, y)
@@ -636,6 +689,7 @@ def make_serve_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
     retraces. PyTorch runs eagerly and compiles nothing, but the event
     stream stays the reference's. With None or a disabled tracer the bare
     step comes back."""
+    _check_mrope_mode(cfg, mode)
     if mode in ("mixed", "verify") and cfg.family in ("ssm", "hybrid"):
         raise ValueError("mixed-tick/verify serving is attention-family "
                          "only: ragged padded tokens would advance "

@@ -71,13 +71,14 @@ def _gen_tokens(vocab: int, seq: int, eng, step: int,
 class TrainBatches:
     """Iterator of slot-major train batches with background prefetch.
     ``batch_for_step`` builds any step's batch directly (what the Hydra
-    runner calls)."""
+    runner calls): tokens / labels (K, M, mb_global, seq), plus for a
+    frontend arch ``frontend_embeds`` (K, M, mb_global, nf, d) float32
+    (standard normal, from ``_philox(seed + 17, step)``), and for M-RoPE
+    ``mrope_pos`` (K, M, 3, mb_global, seq) int32 (text-style: every
+    stream the linear position) — the reference's draws, bit for bit."""
 
     def __init__(self, cfg: ArchConfig, eng, seq_len: int, seed: int = 0,
                  prefetch: int = 2):
-        if cfg.frontend is not None or cfg.rope == "mrope":
-            raise NotImplementedError("frontend / M-RoPE batches are not "
-                                      "ported yet")
         self.cfg, self.eng, self.seq_len, self.seed = cfg, eng, seq_len, seed
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
@@ -88,7 +89,19 @@ class TrainBatches:
     def batch_for_step(self, step: int) -> dict:
         full = _gen_tokens(self.cfg.vocab_size, self.seq_len, self.eng, step,
                            self.seed)
-        return {"tokens": full[..., :-1], "labels": full[..., 1:]}
+        batch = {"tokens": full[..., :-1], "labels": full[..., 1:]}
+        lead = (self.eng.n_trials, self.eng.n_microbatches)
+        mbg = full.shape[2]
+        if self.cfg.frontend is not None:
+            rng = _philox(self.seed + 17, step)
+            batch["frontend_embeds"] = rng.standard_normal(
+                lead + (mbg, self.cfg.n_frontend_tokens,
+                        self.cfg.d_model)).astype(np.float32)
+        if self.cfg.rope == "mrope":
+            batch["mrope_pos"] = np.broadcast_to(
+                np.arange(self.seq_len, dtype=np.int32),
+                lead + (3, mbg, self.seq_len)).copy()
+        return batch
 
     def _producer(self):
         while not self._stop.is_set():

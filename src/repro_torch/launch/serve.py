@@ -77,7 +77,13 @@ each runs its CUDA kernel on the card and its plain PyTorch version on the
 CPU. (The hybrid backbone's Mamba2 mixer is plain PyTorch, as the
 reference's is plain jnp.) The moe family (granite-moe-3b-a800m,
 llama4-scout-17b-a16e) routes at the reference launcher's capacity
-factor, 1.25, each data shard's rows on their own.
+factor, 1.25, each data shard's rows on their own. The dense configs
+(yi-34b, deepseek-67b, starcoder2-15b) and the encoder (bert-large, a
+``--prompt-len + --gen-len`` position table) serve like chatglm3-6b. The
+frontend archs (musicgen-medium, qwen2-vl-72b) are refused here, by the
+continuous engine and by ``--static`` alike, as the reference refuses
+them: they serve through ``core.pipeline.make_serve_step``'s prefill (with
+their frontend embeddings and M-RoPE positions) and decode.
 """
 from __future__ import annotations
 
@@ -352,7 +358,8 @@ def skeleton(cfg, eng) -> list:
     meta device (nothing is allocated)."""
     e1 = dataclasses.replace(eng, n_trials=1)
     params = pl.init_trial_params(cfg, e1, plan_stages(cfg, eng.n_stages),
-                                  torch.Generator(), device="meta")
+                                  torch.Generator(), device="meta",
+                                  max_pos=eng.max_seq)
     return [(path, tuple(v.shape), v.dtype)
             for path, v in tree_items(params)]
 
@@ -363,6 +370,15 @@ def main(argv=None):
     weights = parse_weights(args.arch_weights, args.arches)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.family == "mlp":
+        raise SystemExit(f"{args.arch} is the paper's MLP workload: it has "
+                         f"no sequence to serve")
+    if args.static and (cfg.frontend is not None or cfg.rope == "mrope"):
+        raise SystemExit(
+            f"--static feeds tokens only, and {args.arch}'s prefill needs "
+            f"frontend embeddings / M-RoPE positions (the reference's "
+            f"static path fails there too); serve it through "
+            f"pipeline.make_serve_step's prefill and decode")
     if args.smoke:
         cfg = cfg.reduced()
     dtype = DTYPES[args.dtype]
@@ -405,7 +421,8 @@ def main(argv=None):
     requests = make_requests(args, cfg, eng, weights, max_seq)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = pl.init_trial_params(cfg, eng, plan_stages(cfg, eng.n_stages),
-                                  gen, dtype=dtype, device=device)
+                                  gen, dtype=dtype, device=device,
+                                  max_pos=max_seq)
     tracer = Tracer() if args.trace_out or args.events_out else None
     pa.launches = fa.launches = ms.launches = 0
     if args.static:

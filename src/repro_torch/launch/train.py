@@ -12,6 +12,8 @@ by default.
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch granite-moe-3b-a800m --trials 2 --steps 3 --n-model 2 \\
         --seq-len 2048 --n-layers 8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch bert-large \\
+        --trials 4 --steps 3 --n-model 2 --microbatch 2 --seq-len 512
 
     # CPU smoke runs (plain PyTorch versions of the kernels, reduced config)
     PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \\
@@ -20,15 +22,22 @@ by default.
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
         --smoke --trials 2 --steps 2 --n-model 2 --n-microbatches 2 \\
         --seq-len 16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-medium \\
+        --smoke --trials 2 --steps 2 --n-model 2 --n-microbatches 2 \\
+        --seq-len 16 --device cpu
 
 The kernels are on by family (``models.layers.kernel_options``), as in
-the serve launcher: attention — the dense and moe families', and the
-hybrid family's shared block — through the flash kernel
+the serve launcher: attention — the dense, moe, audio and vlm families',
+the encoder's (non-causal), and the hybrid family's shared block — through
+the flash kernel
 (``use_flash_kernel``), the ssm family's selective scans through K3
 (``use_mamba_kernel``; its backward is autograd of the plain scan, as the
 reference's); each the CUDA kernel on a card, its plain version on the
 CPU. The moe family routes at the reference launcher's capacity factor,
-1.25, and minimises the CE plus its load-balance term. ``--n-model`` stages and ``--n-data`` shards
+1.25, and minimises the CE plus its load-balance term. The frontend archs
+(musicgen-medium, qwen2-vl-72b) train on ``TrainBatches``' synthetic
+frontend embeddings (and M-RoPE positions); learned-position archs get a
+``--seq-len`` position table. ``--n-model`` stages and ``--n-data`` shards
 run as structure inside one process. Weights are random, drawn from the
 run's seed. ``--n-layers`` cuts the depth (full-width chatglm3-6b at full
 depth needs 100 GB of fp32 state per trial; one H100 has 80 GB).
@@ -76,6 +85,10 @@ def main(argv=None):
     device = resolve_device(args.device)
 
     cfg = get_config(args.arch)
+    if cfg.family == "mlp":
+        raise SystemExit(f"{args.arch} is the paper's MLP workload: it "
+                         f"trains through lm.mlp_init / lm.mlp_loss with "
+                         f"optim.SGD, not the pipelined LM step")
     if args.smoke:
         cfg = cfg.reduced()
     if args.n_layers:

@@ -1,7 +1,8 @@
 """Attention, MoE, Mamba1 and hybrid blocks and the KV-cache ops in
 PyTorch.
 
-Port of ``repro/models/blocks.py`` for the dense attention family, the
+Port of ``repro/models/blocks.py`` for the dense attention family (with
+the ``audio`` and ``vlm`` backbones and the non-causal ``encoder``), the
 ``moe`` family (attention + a top-k expert FFN), the Mamba1 (``ssm``)
 family and the Zamba2 ``hybrid`` family (a Mamba2 backbone plus one shared
 attention block applied at every ``attn_every``-th layer). A block is one
@@ -230,16 +231,29 @@ def _no_aux(x):
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _pre_norm(cfg, p, x, i: int):
+    """The block's i-th pre-norm: RMS (``ln{i}``), or for the encoder a
+    layer norm with a bias (``ln{i}_w`` / ``ln{i}_b``)."""
+    if cfg.family == "encoder":
+        return L.layer_norm(x, p[f"ln{i}_w"], p[f"ln{i}_b"], cfg.norm_eps)
+    return L.rms_norm(x, p[f"ln{i}"], cfg.norm_eps)
+
+
 def dense_block(cfg, opts, p, x, *, pos, cache=None, kv_offset=None,
                 mode="train", window: int = 0, block_tables=None,
                 write_mask=None, q_lens=None, n_shards: int = 1):
-    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    """Pre-norm attention + pre-norm MLP with residuals: the dense, audio
+    and vlm families (RMS norms, causal) and the encoder (layer norms with
+    biases; its train and prefill attention is non-causal, as the
+    reference's)."""
+    h = _pre_norm(cfg, p, x, 1)
     a, cache = attn_apply(cfg, opts, p["attn"], h, pos=pos, cache=cache,
                           kv_offset=kv_offset, mode=mode, window=window,
+                          causal=cfg.family != "encoder",
                           block_tables=block_tables, write_mask=write_mask,
                           q_lens=q_lens)
     x = x + a
-    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    h = _pre_norm(cfg, p, x, 2)
     x = x + L.mlp_apply(p["mlp"], h, cfg.act)
     return x, cache, _no_aux(x)
 
@@ -327,15 +341,12 @@ def shared_attn_block(cfg, opts, p, x, *, pos, cache=None, kv_offset=None,
     return x + L.mlp_apply(p["mlp"], h, "swiglu"), cache
 
 
-BLOCK_FNS = {"dense": dense_block, "moe": moe_block, "ssm": ssm_block,
-             "hybrid": hybrid_backbone_block}
+BLOCK_FNS = {"dense": dense_block, "audio": dense_block,
+             "vlm": dense_block, "encoder": dense_block, "moe": moe_block,
+             "ssm": ssm_block, "hybrid": hybrid_backbone_block}
 
 
 def block_fn_for(cfg: ArchConfig):
-    if cfg.family not in BLOCK_FNS:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, moe, ssm and "
-            f"hybrid only)")
     return BLOCK_FNS[cfg.family]
 
 

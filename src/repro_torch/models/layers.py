@@ -1,11 +1,11 @@
 """Core layers in PyTorch: RMS/layer norm (and Mamba2's gated RMS norm),
-rotary embeddings (1d / 2d-half), GQA attention (flash kernel / chunked
+rotary embeddings (1d / 2d-half / M-RoPE), GQA attention (flash kernel / chunked
 online-softmax / direct), the SwiGLU/GELU MLP, the top-k MoE FFN with
 capacity-bounded scatter dispatch, the Mamba1 selective-scan mixer and the
 Mamba2 (SSD) mixer.
 
-Port of ``repro/models/layers.py`` (attention family, MoE, Mamba1 and
-Mamba2 — M-RoPE waits for its slice). Functions keep the reference's
+Port of ``repro/models/layers.py`` (attention family, M-RoPE, MoE,
+Mamba1 and Mamba2). Functions keep the reference's
 tensor layouts (``(b, s, h, hd)`` activations, ``(d, f)`` weights) so the
 tests compare like with like. Everything is a plain function on tensors;
 the pipeline engine stacks layers along a leading axis exactly as the
@@ -50,12 +50,14 @@ class ModelOptions:
 
 def kernel_options(cfg: ArchConfig, **kw) -> ModelOptions:
     """Options with the kernel of ``cfg``'s family's path on — K1
-    (``use_flash_kernel``) for the dense and moe families' attention and
-    the hybrid family's shared block, K3 (``use_mamba_kernel``) for the ssm
-    family's scans — and ``kw`` (the launchers' choice)."""
-    return ModelOptions(use_flash_kernel=cfg.family in ("dense", "moe",
-                                                        "hybrid"),
-                        use_mamba_kernel=cfg.family == "ssm", **kw)
+    (``use_flash_kernel``) for the attention of the dense, moe, audio, vlm
+    and encoder (non-causal) families and the hybrid family's shared
+    block, K3 (``use_mamba_kernel``) for the ssm family's scans — and
+    ``kw`` (the launchers' choice)."""
+    return ModelOptions(
+        use_flash_kernel=cfg.family in ("dense", "moe", "hybrid", "audio",
+                                        "vlm", "encoder"),
+        use_mamba_kernel=cfg.family == "ssm", **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -84,7 +86,7 @@ def gated_rms_norm(x, gate, w, eps: float = 1e-5):
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embeddings (1d / 2d-half)
+# Rotary position embeddings (1d / 2d-half / M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -114,6 +116,10 @@ def apply_rope(x, positions, cfg: ArchConfig):
 
     - "1d": standard rotary over the full head dim.
     - "2d": ChatGLM-style — rotary on the first half of the head dim only.
+    - "mrope": Qwen2-VL — the hd // 2 rotation *pairs* split in 3 sections
+      (1/4 temporal, 3/8 height, the rest width: 16, 24, 24 at hd 128),
+      each section's pairs turned by its own position stream at the same
+      pairs' frequencies of ``_rope_freqs(hd)``; ``positions`` (3, b, s).
     - "none"/"learned": identity (positions handled at the embedding).
     """
     if cfg.rope in ("none", "learned"):
@@ -126,7 +132,17 @@ def apply_rope(x, positions, cfg: ArchConfig):
         rot, keep = x[..., :hd // 2], x[..., hd // 2:]
         cos, sin = rope_cos_sin(positions, hd // 2, cfg.rope_theta)
         return torch.cat([_rotate(rot, cos, sin), keep], dim=-1)
-    raise NotImplementedError(f"rope={cfg.rope!r} is not ported yet")
+    if cfg.rope == "mrope":
+        half = hd // 2
+        s_t = half // 4
+        s_h = (half - s_t) // 2
+        bounds = [0, s_t, s_t + s_h, half]
+        freqs = _rope_freqs(hd, cfg.rope_theta, positions.device)
+        ang = torch.cat([positions[i].float()[..., None]
+                         * freqs[bounds[i]:bounds[i + 1]]
+                         for i in range(3)], dim=-1)
+        return _rotate(x, torch.cos(ang), torch.sin(ang))
+    raise ValueError(cfg.rope)
 
 
 # ---------------------------------------------------------------------------

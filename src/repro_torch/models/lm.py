@@ -1,7 +1,9 @@
 """Stacked-layer language model in PyTorch: init, forward, loss, greedy
 oracle.
 
-Port of ``repro/models/lm.py`` (dense, moe, ssm and hybrid families). As in
+Port of ``repro/models/lm.py`` (every family: dense, moe, ssm, hybrid, the
+audio and vlm backbones, the encoder, and the paper's MLP through
+``mlp_init`` / ``mlp_forward`` / ``mlp_loss``). As in
 the reference, every layer leaf carries a leading layer axis so the
 pipeline engine can run a contiguous slice of layers per stage through the
 same :func:`stack_apply`, with a per-layer validity mask for stage-padded
@@ -143,21 +145,27 @@ def init_shared_params(cfg: ArchConfig, gen: torch.Generator,
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32,
-                n_layers: Optional[int] = None, device=None):
-    """Full model parameter dict (dense, moe, ssm or hybrid family); layer
-    leaves get a leading ``n_layers`` axis (``n_layers`` may exceed
-    ``cfg.n_layers`` — stage padding; padded layers are masked at apply
-    time); hybrid archs add the ``"shared"`` block. Draws from the torch
-    generator ``gen`` (whose device must be ``device``); the numbers
-    differ from the reference's ``jax.random`` init, so cross-framework
-    tests load the reference's weights with :func:`params_from_numpy`
-    instead."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+                n_layers: Optional[int] = None, device=None,
+                max_pos: int = 0):
+    """Full model parameter dict (every family but ``mlp``, which has
+    :func:`mlp_init`); layer leaves get a leading ``n_layers`` axis
+    (``n_layers`` may exceed ``cfg.n_layers`` — stage padding; padded
+    layers are masked at apply time); hybrid archs add the ``"shared"``
+    block. The encoder's norms are layer norms with biases (``ln1_w`` /
+    ``ln1_b`` / ``ln2_w`` / ``ln2_b``, ``final_norm`` {"w", "b"}), and
+    ``rope="learned"`` archs get the position table ``embed/pos``
+    (max(max_pos, 1), d). Draws from the torch generator ``gen`` (whose
+    device must be ``device``); the numbers differ from the reference's
+    ``jax.random`` init, so cross-framework tests load the reference's
+    weights with :func:`params_from_numpy` instead."""
+    if cfg.family == "mlp":
+        raise ValueError("the mlp workload has its own parameters: "
+                         "lm.mlp_init")
     nl = n_layers or cfg.n_layers
     d = cfg.d_model
     nrm = lambda shape, fan: _normal(gen, shape, fan, dtype, device)
     ones = lambda *shape: torch.ones(shape, dtype=dtype, device=device)
+    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
     if cfg.family == "ssm":
         layers = _ssm_layers(cfg, nl, nrm, ones, gen, dtype, device)
         embed = nrm((cfg.vocab_size, d), 1)
@@ -169,13 +177,20 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32,
         ffn = (_moe_params(cfg, (nl,), nrm) if cfg.family == "moe"
                else _mlp_params(d, cfg.d_ff, cfg.act, (nl,), nrm))
         embed = nrm((cfg.vocab_size, d), 1)
-        layers = {"attn": _attn_params(cfg, (nl,), nrm), "ln1": ones(nl, d),
-                  "ln2": ones(nl, d), ffn_name: ffn}
+        layers = {"attn": _attn_params(cfg, (nl,), nrm), ffn_name: ffn}
+        if cfg.family == "encoder":
+            layers.update(ln1_w=ones(nl, d), ln1_b=zeros(nl, d),
+                          ln2_w=ones(nl, d), ln2_b=zeros(nl, d))
+        else:
+            layers.update(ln1=ones(nl, d), ln2=ones(nl, d))
     params = {
         "embed": {"tok": embed},
         "layers": layers,
-        "final_norm": ones(d),
+        "final_norm": ({"w": ones(d), "b": zeros(d)}
+                       if cfg.family == "encoder" else ones(d)),
     }
+    if cfg.rope == "learned":
+        params["embed"]["pos"] = nrm((max(max_pos, 1), d), 1)
     if cfg.hybrid is not None:
         params["shared"] = init_shared_params(cfg, gen, dtype, device)
     if not cfg.tie_embeddings:
@@ -356,12 +371,34 @@ def stack_apply(cfg: ArchConfig, opts: ModelOptions, layer_params, x, *,
 # ---------------------------------------------------------------------------
 
 
-def embed_tokens(cfg: ArchConfig, p_embed, tokens, *, compute_dtype=None):
+def embed_tokens(cfg: ArchConfig, p_embed, tokens, *, positions=None,
+                 frontend_embeds=None, compute_dtype=None):
+    """Token rows, plus for ``rope="learned"`` the position rows at
+    ``positions`` (clamped to the table's last row, as the reference's
+    single-device embedding); ``frontend_embeds`` (b, nf, d) replace the
+    first nf positions (the stubbed audio / vision frontend)."""
     x = p_embed["tok"][tokens.long()]
-    return x if compute_dtype is None else x.to(compute_dtype)
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    if cfg.rope == "learned" and positions is not None:
+        tab = p_embed["pos"]
+        x = x + tab[positions.long().clamp(max=tab.shape[0] - 1)].to(x.dtype)
+    if frontend_embeds is not None:
+        x = replace_frontend_rows(x, frontend_embeds)
+    return x
+
+
+def replace_frontend_rows(x, frontend_embeds):
+    """x (b, s, d) with its first nf rows replaced by ``frontend_embeds``
+    (b, nf, d), cast to x's dtype (out of place: x may be on the autograd
+    tape)."""
+    nf = frontend_embeds.shape[1]
+    return torch.cat([frontend_embeds.to(x.dtype), x[:, nf:]], dim=1)
 
 
 def final_norm_apply(cfg: ArchConfig, p_norm, x):
+    if cfg.family == "encoder":
+        return L.layer_norm(x, p_norm["w"], p_norm["b"], cfg.norm_eps)
     return L.rms_norm(x, p_norm, cfg.norm_eps)
 
 
@@ -391,11 +428,14 @@ def cross_entropy(logits, labels, mask=None):
 
 
 def default_positions(cfg: ArchConfig, batch: dict, b: int, s: int):
-    """(b, s) positions 0..s-1 of a full-sequence batch (M-RoPE's three
-    streams are not ported)."""
+    """(b, s) positions 0..s-1 of a full-sequence batch; for M-RoPE the
+    batch's (3, b, s) ``mrope_pos``, or the text-style fallback (all three
+    streams the linear position)."""
+    base = torch.arange(s, device=batch["tokens"].device).expand(b, s)
     if cfg.rope == "mrope":
-        raise NotImplementedError("rope='mrope' is not ported yet")
-    return torch.arange(s, device=batch["tokens"].device).expand(b, s)
+        return batch["mrope_pos"] if "mrope_pos" in batch \
+            else base.expand(3, b, s)
+    return base
 
 
 def forward(cfg: ArchConfig, opts: ModelOptions, params, batch: dict,
@@ -412,9 +452,13 @@ def forward(cfg: ArchConfig, opts: ModelOptions, params, batch: dict,
     b, s = tokens.shape
     if mode == "decode":
         pos = kv_offset[:, None]  # (b, 1) absolute positions
+        if cfg.rope == "mrope":
+            pos = pos.expand(3, b, 1)
     else:
         pos = default_positions(cfg, batch, b, s)
     x = embed_tokens(cfg, params["embed"], tokens,
+                     positions=pos if cfg.rope != "mrope" else None,
+                     frontend_embeds=batch.get("frontend_embeds"),
                      compute_dtype=opts.compute_dtype)
     n_stack = n_stacked_layers(params["layers"])
     if layer_mask is None:
@@ -446,7 +490,7 @@ def greedy_generate(cfg: ArchConfig, opts: ModelOptions, params, prompt,
     """Single-device greedy decode of one prompt (the serving oracle):
     prefill the prompt into a dense cache, then decode one token at a time.
     The cache is sized to the (possibly stage-padded) layer stack."""
-    device = params["final_norm"].device
+    device = params["embed"]["tok"].device
     n_stack = n_stacked_layers(params["layers"])
     cache = init_cache(cfg, 1, max_seq, cache_dtype=cache_dtype,
                        n_layers=n_stack, device=device)
@@ -462,3 +506,44 @@ def greedy_generate(cfg: ArchConfig, opts: ModelOptions, params, prompt,
             kv_offset=torch.tensor([len(prompt) + t], device=device))
         out.append(int(torch.argmax(logits[0, 0])))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The paper's 1.2M-param feed-forward workload (a uniform hidden stack, so it
+# maps onto the same embed / stage / head structure)
+# ---------------------------------------------------------------------------
+
+
+def mlp_init(mlp_cfg, gen: torch.Generator, dtype=torch.float32,
+             device=None):
+    """{"embed": {w (d_in, h), b}, "layers": {w (n_hidden, h, h), b
+    (n_hidden, h)}, "head": {w (h, d_out), b}}: weights N(0, 1/fan_in),
+    biases 0, as the reference's ``mlp_init`` (whose ``jax.random`` draws
+    differ: tests load its weights through :func:`params_from_numpy`)."""
+    nrm = lambda shape, fan: _normal(gen, shape, fan, dtype, device)
+    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    h = mlp_cfg.d_hidden
+    return {
+        "embed": {"w": nrm((mlp_cfg.d_in, h), mlp_cfg.d_in), "b": zeros(h)},
+        "layers": {"w": nrm((mlp_cfg.n_hidden, h, h), h),
+                   "b": zeros(mlp_cfg.n_hidden, h)},
+        "head": {"w": nrm((h, mlp_cfg.d_out), h),
+                 "b": zeros(mlp_cfg.d_out)},
+    }
+
+
+def mlp_forward(params, x, layer_mask=None):
+    """x (b, d_in) -> logits (b, d_out): ReLU layers; a hidden layer whose
+    ``layer_mask`` entry is False passes its input through."""
+    h = torch.relu(x @ params["embed"]["w"] + params["embed"]["b"])
+    for i in range(params["layers"]["w"].shape[0]):
+        if layer_mask is None or layer_mask[i]:
+            h = torch.relu(h @ params["layers"]["w"][i]
+                           + params["layers"]["b"][i])
+    return h @ params["head"]["w"] + params["head"]["b"]
+
+
+def mlp_loss(params, batch):
+    """Mean CE of ``batch`` {"x" (b, d_in), "y" (b,)}."""
+    logits = mlp_forward(params, batch["x"])
+    return cross_entropy(logits[:, None, :], batch["y"][:, None])

@@ -1,2 +1,3 @@
 from repro_torch.optim.adamw import (  # noqa: F401
-    AdamW, constant_schedule, warmup_cosine_schedule, warmup_linear_schedule)
+    SGD, AdamW, constant_schedule, warmup_cosine_schedule,
+    warmup_linear_schedule)

@@ -1,4 +1,5 @@
-"""AdamW with per-trial hyperparameters — port of ``repro/optim/adamw.py``.
+"""AdamW and SGD with per-trial hyperparameters — port of
+``repro/optim/adamw.py``.
 
 Hydra trains K trials in one program, so every hyperparameter the
 model-selection layer searches over (learning rate, weight decay) is a (K,)
@@ -12,7 +13,9 @@ overwritten. At full width one fp32 leaf is up to 1.8 GB, so a functional
 update's temporaries would cost several times that; here each leaf's step
 allocates one temporary of its size (the Adam denominator).
 
-The plain-SGD optimizer of the paper's MLP experiment is not ported yet.
+:class:`SGD` (the paper's MLP accuracy-parity experiment: plain, or with
+momentum) updates in place the same way, with state ``{"count"}`` and, with
+momentum, fp32 ``"mom"`` buffers.
 """
 from __future__ import annotations
 
@@ -118,4 +121,48 @@ class AdamW:
                 p.addcmul_(delta, _bcast(lr, p), value=-1.0)
             else:
                 p.copy_(p.float().addcmul_(delta, _bcast(lr, p), value=-1.0))
+        return params, state
+
+
+# ---------------------------------------------------------------------------
+# SGD (the paper's MLP accuracy-parity experiment: plain or with momentum)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SGD:
+    momentum: float = 0.0
+
+    def init(self, params):
+        state = {"count": torch.zeros((), dtype=torch.int32)}
+        if self.momentum != 0.0:
+            state["mom"] = tree_map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device), params)
+        return state
+
+    @torch.no_grad()
+    def update(self, params, grads, state, hparams, step, grad_norm=None):
+        """One step, in place: p -= lr · g, or with momentum mom = μ · mom
+        + g and p -= lr · mom (fp32 arithmetic, the result in p's dtype).
+        hparams: {"lr": (K,)} per trial (tensors, arrays or lists);
+        ``step`` and ``grad_norm`` are accepted for the optimizer interface
+        (no schedule, no clipping, as the reference's). Returns (params,
+        state), the same objects."""
+        leaves = tree_leaves(params)
+        lr = torch.as_tensor(hparams["lr"], dtype=torch.float32,
+                             device=leaves[0].device).reshape(-1)
+        state["count"] += 1
+        moms = (tree_leaves(state["mom"]) if self.momentum != 0.0
+                else [None] * len(leaves))
+        for p, g, mom in zip(leaves, tree_leaves(grads), moms):
+            step_dir = g.float()
+            if mom is not None:
+                mom.mul_(self.momentum).add_(step_dir)
+                step_dir = mom
+            if p.dtype == torch.float32:
+                p.addcmul_(step_dir, _bcast(lr, p), value=-1.0)
+            else:
+                p.copy_(p.float().addcmul_(step_dir, _bcast(lr, p),
+                                           value=-1.0))
         return params, state

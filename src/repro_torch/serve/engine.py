@@ -325,7 +325,8 @@ class ServeEngine:
                  spec_pairs: Optional[dict] = None, tracer=None,
                  device=None):
         if cfg.rope == "mrope" or cfg.frontend is not None:
-            raise ValueError("continuous batching supports text-only archs")
+            raise ValueError("continuous batching supports text-only archs; "
+                             "use the static path for mrope/frontend models")
         recurrent = cfg.family in ("ssm", "hybrid") or cfg.hybrid is not None
         if eng.window and recurrent:
             raise ValueError(
@@ -1176,6 +1177,15 @@ def static_serve(cfg: ArchConfig, eng: pl.EngineConfig, params, requests,
     slots. Arrival times are ignored (a clairvoyant static scheduler, which
     flatters the baseline). ``device`` as :class:`ServeEngine`'s. Returns
     (completions, ServeStats)."""
+    if cfg.rope == "mrope" or cfg.frontend is not None:
+        # the reference's static path feeds its prefill tokens only, while
+        # its prefill step expects frontend_embeds / mrope_pos: it fails
+        # there. These archs serve through make_serve_step's prefill
+        # (with their frontend inputs) and decode
+        raise ValueError(
+            f"static_serve feeds tokens only; {cfg.name} needs frontend "
+            f"embeddings / M-RoPE positions in its prefill — serve it "
+            f"through pipeline.make_serve_step('prefill') and 'decode'")
     opts = opts or ModelOptions()
     dev = resolve_device(device)
     # the lockstep baseline keeps dense per-slot strips (it IS the

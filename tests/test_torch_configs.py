@@ -1,8 +1,8 @@
 """PyTorch port — configs: the port's ArchConfig agrees with the reference
 field by field, in its reduced() smoke form, and in param_count(), for the
-registered archs (chatglm3-6b, falcon-mamba-7b, zamba2-7b; the MoE pair is
-held to the reference in ``test_torch_moe.py``) and every reference arch's
-config logic."""
+registered archs (all twelve of the reference's; the MoE pair is also held
+to the reference in ``test_torch_moe.py``) and every reference arch's config
+logic."""
 import dataclasses
 
 import pytest
@@ -24,11 +24,36 @@ def _port_copy(ref_cfg):
 
 
 def test_registry_holds_the_ported_archs():
-    assert tcfg.list_archs() == ["chatglm3-6b", "falcon-mamba-7b",
-                                 "granite-moe-3b-a800m",
-                                 "llama4-scout-17b-a16e", "zamba2-7b"]
+    """Every reference arch is registered, under the reference's names and
+    split (assigned / paper workloads), with the reference's MLP config."""
+    assert tcfg.list_archs() == jcfg.list_archs()
+    assert tcfg.list_archs(assigned_only=True) == \
+        jcfg.list_archs(assigned_only=True)
+    assert sorted(tcfg.PAPER_ARCHS) == sorted(jcfg.PAPER_ARCHS) == \
+        ["bert-large", "mlp-1m"]
+    assert dataclasses.asdict(tcfg.MLP_CONFIG) == \
+        dataclasses.asdict(jcfg.MLP_CONFIG)
+    assert tcfg.MLP_CONFIG.param_count() == jcfg.MLP_CONFIG.param_count()
     with pytest.raises(KeyError, match="unknown arch"):
-        tcfg.get_config("yi-34b")
+        tcfg.get_config("gpt-5")
+
+
+NEW_ARCHS = ["yi-34b", "deepseek-67b", "starcoder2-15b", "musicgen-medium",
+             "qwen2-vl-72b", "bert-large", "mlp-1m"]
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("name", NEW_ARCHS)
+def test_new_configs_match_reference(name, reduced):
+    """The seven configs beyond the first five: fields, parameter counts
+    (whole model, per layer, active) and the reduced smoke form."""
+    ref, port = jcfg.get_config(name), tcfg.get_config(name)
+    if reduced:
+        ref, port = ref.reduced(), port.reduced()
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.param_count() == ref.param_count()
+    assert port.layer_param_count() == ref.layer_param_count()
+    assert port.active_param_count() == ref.active_param_count()
 
 
 @pytest.mark.parametrize("reduced", [False, True])

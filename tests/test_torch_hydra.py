@@ -308,7 +308,7 @@ def test_run_model_selection_matches_reference(monkeypatch):
     hc_j = jhydra.HydraConfig(seq_len=16, steps=3)
     hc_t = thydra.HydraConfig(seq_len=16, steps=3)
 
-    def jax_init(cfg, eng, plan, gen, dtype, device):
+    def jax_init(cfg, eng, plan, gen, dtype, device, max_pos=0):
         """The reference runner's initial weights (PRNGKey(seed)), carried
         across: the two frameworks' generators differ."""
         je = jpl.EngineConfig(n_trials=eng.n_trials,
@@ -317,7 +317,8 @@ def test_run_model_selection_matches_reference(monkeypatch):
                               n_stages=eng.n_stages,
                               data_size=eng.data_size)
         p = jpl.init_trial_params(cfg_j, je, jplan(cfg_j, eng.n_stages),
-                                  jax.random.PRNGKey(hc_t.seed))
+                                  jax.random.PRNGKey(hc_t.seed),
+                                  max_pos=max_pos)
         return params_from_numpy(jax.tree.map(np.asarray, p), device, dtype)
 
     monkeypatch.setattr(thydra.pl, "init_trial_params", jax_init)

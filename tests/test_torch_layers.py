@@ -115,9 +115,13 @@ def test_mlp_apply(act):
 
 
 def test_unported_rope_raises():
-    cfg = dataclasses.replace(tget("chatglm3-6b").reduced(), rope="mrope")
-    with pytest.raises(NotImplementedError):
-        TL.apply_rope(torch.zeros(1, 2, 4, 16), torch.zeros(3, 1, 2), cfg)
+    """Every rope kind of the reference is ported (M-RoPE is held to it in
+    ``test_torch_families.py``); a kind outside them raises, as the
+    reference's ``apply_rope`` does."""
+    cfg = tget("chatglm3-6b").reduced()
+    object.__setattr__(cfg, "rope", "alibi")  # past __post_init__'s check
+    with pytest.raises(ValueError, match="alibi"):
+        TL.apply_rope(torch.zeros(1, 2, 4, 16), torch.zeros(1, 2), cfg)
 
 
 # ---------------------------------------------------------------------------
