@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with a CUDA card (H100):
     python3 chip_smoke.py [--out results.json] [--phases 2,3,5]
 
 It builds the hand-written CUDA kernels from the checkout's sources (one
-nvcc per source, all started together) and runs seventeen phases, each a hard
+nvcc per source, all started together) and runs eighteen phases, each a hard
 assert; it exits 0 only if every phase passed, and exits non-zero without
 a result when no CUDA device is visible. ``--phases`` runs a subset (the
 build always runs) and then prints neither the kernels line nor the last
@@ -226,7 +226,24 @@ line.
    what phase 7 records, the model FLOPs counting seq^2 pairs. (g) The
    paper's MLP (mlp-1m) trained 20 steps with SGD(momentum=0.9) on the
    card and on the CPU from the same weights: losses within 1e-5.
-18. A {"kernels": [...]} line for every ported kernel, the card line, and
+18. The dry-run with the H100 roofline (``launch/dryrun.py``). (a) Every
+   applicable (arch × shape) cell of the grid, bert-large included, on
+   the card layout, counted on ``meta`` with loop-awareness (worker
+   processes): one row a cell (dominant term, roofline fraction, modeled
+   GB, fits_card) and the count of cells that fit; a cell that errors
+   fails the phase. (b) Phase 7's training step (chatglm3-6b, 4
+   full-width fp32 layers, K 2, M 5, S 2, seq 2048, remat) counted on
+   the card with K1 on and on ``meta`` with the plain path: the FLOPs
+   agree exactly once the attention terms are taken out (K1's forward
+   over the causal pairs and its chunked backward, against the plain
+   path's chunked forward and backward over every score block), and a
+   count that misses K1's forward fails; the counted FLOPs beside the
+   model FLOPs and 6·N·D. (c) falcon-mamba-7b ``decode_32k`` at its
+   published shape (64 layers, bf16, 128 rows, cache length 32768)
+   allocated and run for one decode step through ``make_serve_step``
+   with the launcher's kernel options: the measured peak memory beside
+   the modeled bytes.
+19. A {"kernels": [...]} line for every ported kernel, the card line, and
    the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 from __future__ import annotations
@@ -245,8 +262,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # dense, same
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.analysis import costs  # noqa: E402
+from repro_torch.analysis.roofline import PEAK_FLOPS as PEAK_OPS  # noqa: E402
+
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 BF16_REL = 1e-2  # K2 in bf16: also within 1e-2 of the largest plain output
 HQ, HKV, HD, BS = 32, 2, 128, 16  # chatglm3-6b attention, serving block
@@ -256,6 +275,13 @@ SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # test_kernels_mamba
 
 def say(*parts) -> None:
     print(*parts, flush=True)  # noqa: T201
+
+
+def tidy() -> None:
+    """Free what the last phase left (cycles first, then the allocator's
+    cache)."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def card_line() -> str:
@@ -376,20 +402,6 @@ def plant_needles(case, rng, tables, offsets, sq, bs) -> None:
                                        / u.dot(u)).to(case["k_pool"])
 
 
-def case_work(offsets, q_lens, sq, window):
-    """(attended (query, key) pairs, live K/V tokens) that this case's
-    masks need: each real query attends keys [max(0, qpos-window+1) if
-    windowed, qpos]; a row's live tokens are the union of its queries'."""
-    pairs = live = 0
-    for off, ql in zip(offsets, q_lens or [sq] * len(offsets)):
-        spans = [(max(0, off + i - window + 1) if window else 0, off + i + 1)
-                 for i in range(ql)]
-        pairs += sum(hi - lo for lo, hi in spans)
-        if spans:
-            live += max(h for _, h in spans) - min(lo for lo, _ in spans)
-    return pairs, live
-
-
 def k2_limit(want) -> float:
     """K2's limit on max |kernel - plain|: the reference's absolute
     tolerance, and in bf16 also ``BF16_REL`` of the largest plain output
@@ -439,16 +451,11 @@ def k2_check(pa, dev, flush, card, dt, seed, case, heads=(HQ, HKV, HD)):
         ms = cuda_ms(lambda: pa.paged_attention_kernel(*args, **kw), flush)
         plain_ms = cuda_ms(lambda: pa.paged_attention_plain(*args, **kw),
                            flush)
-        es = a["q"].element_size()
-        pairs, live = case_work(offsets, q_lens, sq, window)
-        nbytes = (live * hkv * hd * 2 * es + 2 * a["q"].numel() * es
-                  + 4 * (a["block_tables"].numel() + 3 * len(offsets)))
-        ops = pairs * hq * hd * 4  # QK^T and PV, 2 ops per MAC
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dt]
-        rec.update(ms=ms, plain_ms=plain_ms,
-                   bound_ms=1e3 * max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   live_kv_tokens=live, bytes=nbytes, ops=ops)
+        nbytes, ops, _, live = costs.paged_work(
+            a["q"], a["k_pool"], a["block_tables"], offsets, q_lens, window)
+        bound, by = costs.bound_s(nbytes, ops, dt)
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=1e3 * bound,
+                   bound_by=by, live_kv_tokens=live, bytes=nbytes, ops=ops)
     return rec, failure
 
 
@@ -490,31 +497,10 @@ FLASH_TIMED = ("train2048", "serve_prefill512", "zamba2_train2048_hd112",
                "zamba2_prefill512_hd112")
 
 
-def flash_pairs(sq, sk, causal, window, off):
-    """Attended (query, key) pairs under the masks."""
-    pairs = 0
-    for i in range(sq):
-        qpos = i + off
-        hi = min(sk, qpos + 1) if causal else sk
-        lo = max(0, qpos - window + 1) if window else 0
-        pairs += max(0, hi - lo)
-    return pairs
-
-
-def flash_work(q, k, v, causal=True, window=0, kv_offset=0):
-    """(bytes, operations, attended pairs) one K1 launch must move and do:
-    each input read once and the output written once; QK^T and PV over the
-    pairs its masks keep, 2 operations per multiply-add."""
-    b, sq, hq, hd = q.shape
-    pairs = flash_pairs(sq, k.shape[1], causal, window, kv_offset)
-    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    return nbytes, 4 * hd * hq * b * pairs, pairs
-
-
 def flash_bound_s(q, k, v, **kw) -> float:
     """The least time one K1 launch could take on this card (s)."""
-    nbytes, ops, _ = flash_work(q, k, v, **kw)
-    return max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[q.dtype])
+    nbytes, ops, _ = costs.flash_work(q, k, v, **kw)
+    return costs.bound_s(nbytes, ops, q.dtype)[0]
 
 
 def phase3(fa, ops, dev, flush, card):
@@ -552,8 +538,8 @@ def k1_check(fa, ops, dev, flush, card, gen, dt, case, timed, failed):
                window=window, kv_offset=off, max_abs_err=err,
                tol=FLASH_TOL[dt])
     if timed:
-        nbytes, ops_n, pairs = flash_work(q, k, v, **kw)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_n / PEAK_OPS[dt]
+        nbytes, ops_n, pairs = costs.flash_work(q, k, v, **kw)
+        bound, by = costs.bound_s(nbytes, ops_n, dt)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         rec.update(
             ms=cuda_ms(lambda: fa.flash_attention_kernel(q, k, v, **kw),
@@ -562,8 +548,7 @@ def k1_check(fa, ops, dev, flush, card, gen, dt, case, timed, failed):
                              flush),
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True), flush),
-            bound_ms=1e3 * max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bound_ms=1e3 * bound, bound_by=by,
             pairs=pairs, bytes=nbytes, ops=ops_n)
         lib = F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True)
@@ -722,20 +707,11 @@ def launch_bound_s(q, k_pool, v_pool, block_tables, kv_offset, kv_len,
     """The least time one K2 launch could take on this card (s), as phase
     2 bounds a case: the larger of its bytes over the memory rate and its
     operations over the peak of q's dtype, counting what this launch's
-    data needs (``case_work`` over the rows whose table is allocated; in
-    the engine kv_len is always kv_offset + q_len)."""
-    b, sq = q.shape[0], q.shape[1]
-    ql = [sq] * b if q_lens is None else q_lens.tolist()
-    rows = [r for r, ok in enumerate((block_tables[:, 0] >= 0).tolist())
-            if ok]
-    off = kv_offset.tolist()
-    pairs, live = case_work([off[r] for r in rows], [ql[r] for r in rows],
-                            sq, window)
-    es = q.element_size()
-    nbytes = (live * k_pool.shape[2] * k_pool.shape[3] * 2 * es
-              + 2 * q.numel() * es + 4 * (block_tables.numel() + 3 * b))
-    ops = pairs * q.shape[2] * q.shape[3] * 4
-    return max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[q.dtype])
+    data needs (``costs.case_work`` over the rows whose table is
+    allocated; in the engine kv_len is always kv_offset + q_len)."""
+    nbytes, ops, _, _ = costs.paged_launch_work(q, k_pool, block_tables,
+                                                kv_offset, window, q_lens)
+    return costs.bound_s(nbytes, ops, q.dtype)[0]
 
 
 def profile_k2_by_mode(pa, make_engine, reqs):
@@ -1434,20 +1410,14 @@ def phase8(ms, ops, dev, flush, card):
                        b=b, s=s, di=di, n=n, strided_c=strided,
                        max_abs_err=err, tol=SCAN_TOL[dt])
             if name == "path512":
-                es = args[0].element_size()
-                # each input read once, each output written once
-                nbytes = (2 * b * s * di * n * es + b * s * n * es
-                          + b * di * n * 4 * 2 + b * s * di * es)
-                ops_n = 4 * b * s * di * n  # 2 FMAs per (t, channel, state)
-                t_bytes = nbytes / HBM_BYTES_PER_S
-                t_ops = ops_n / PEAK_OPS[torch.float32]  # fp32 arithmetic
+                nbytes, ops_n = costs.scan_work(*args)
+                # fp32 arithmetic whatever the input dtype
+                bound, by = costs.bound_s(nbytes, ops_n, torch.float32)
                 rec.update(
                     ms=cuda_ms(lambda: ms.mamba_scan_kernel(*args), flush),
                     plain_ms=cuda_ms(lambda: ms.mamba_scan_plain(*args),
                                      flush, iters=10, warmup=2),
-                    library_ms=None,
-                    bound_ms=1e3 * max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    library_ms=None, bound_ms=1e3 * bound, bound_by=by,
                     bytes=nbytes, ops=ops_n)
             results.append(rec)
             say("phase 8:", json.dumps(rec))
@@ -3994,7 +3964,229 @@ def phase17(pa, fa, ops, dev, new_flush, card):
                      k1_bert_training=k1_bert)
 
 
-PHASES = tuple(range(1, 18))
+# ---------------------------------------------------------------------------
+# Phase 18: the dry-run with the H100 roofline
+# ---------------------------------------------------------------------------
+
+P18_WORKERS = 7  # count processes beside the main one (8 host cores)
+
+
+def phase18_grid(card):
+    """(a) Every applicable cell on the card layout, counted on meta."""
+    from repro_torch.configs import (ASSIGNED_ARCHS, PAPER_ARCHS, SHAPES,
+                                     shape_applicable)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_card_mesh
+
+    archs = dict(ASSIGNED_ARCHS, **{"bert-large": PAPER_ARCHS["bert-large"]})
+    shapes = list(SHAPES.values())
+    t = time.perf_counter()
+    res = dryrun.run_grid(archs, shapes, [make_card_mesh()],
+                          str(ROOT / "build" / "dryrun_smoke"), force=True,
+                          workers=P18_WORKERS)
+    wall = time.perf_counter() - t
+    rows = [r for r in res if "skipped" not in r]
+    applicable = sum(shape_applicable(c, sh)[0] for c in archs.values()
+                     for sh in shapes)
+    failed = [f"{r['arch']} {r['shape']}: {r['error']}" for r in rows
+              if "error" in r]
+    for r in rows:
+        if "error" in r:
+            continue
+        rl = r["roofline"]
+        say(f"phase 18 (a): {r['arch']} {r['shape']} K={r['engine']['n_trials']}"
+            f" M={r['engine']['n_microbatches']} dominant={rl['dominant']} "
+            f"roofline={rl['roofline_fraction']:.4f} compute_s="
+            f"{rl['compute_s']:.4f} memory_s={rl['memory_s']:.4f} "
+            f"modeled={r['modeled_bytes_per_device'] / 1e9:.2f} GB "
+            f"fits_card={r['fits_card']}")
+    assert not failed, "phase 18 (a): " + "; ".join(failed)
+    assert len(rows) == applicable, (len(rows), applicable)
+    fits = [f"{r['arch']} {r['shape']}" for r in rows if r["fits_card"]]
+    say(f"phase 18 (a): {len(rows)} cells counted in {wall:.1f} s, "
+        f"{len(fits)} fit the card ({rows[0]['card_bytes'] / 1e9:.2f} GB, "
+        f"{rows[0]['card_bytes_source']}): {', '.join(fits)}")
+    return dict(card=card, cells=len(rows), seconds=wall, fits=fits,
+                rows=[{k: r[k] for k in ("arch", "shape", "engine",
+                                         "modeled_bytes_per_device",
+                                         "fits_card", "model_flops",
+                                         "costs", "roofline")}
+                      for r in rows])
+
+
+def attention_terms(cfg, opts, mbg, seq):
+    """FLOPs of one attention use at the training step's shape, counted on
+    meta: the plain path's forward and its backward (its chunked q-block
+    recompute included), and K1's backward (``ops._FlashAttention``: the
+    chunked attention at 512-token blocks, recomputed and differentiated);
+    K1's forward is its own count over the causal pairs."""
+    from repro_torch.models import layers as L
+
+    meta = lambda *shape: torch.zeros(shape, device="meta",
+                                      requires_grad=True)
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = meta(mbg, seq, hq, hd), meta(mbg, seq, hkv, hd), \
+        meta(mbg, seq, hkv, hd)
+    ct = torch.zeros(mbg, seq, hq, hd, device="meta")
+    with costs.count() as fwd:
+        out = L.attention(q, k, v, causal=True, opts=opts)
+    with costs.count() as bwd:
+        torch.autograd.grad(out, (q, k, v), ct)
+    with costs.count() as k1_bwd:
+        o = L.chunked_attention(q, k, v, causal=True, q_chunk=512,
+                                kv_chunk=512)
+        torch.autograd.grad(o, (q, k, v), ct)
+    return dict(plain_fwd=fwd.flops, plain_bwd=bwd.flops,
+                k1_bwd=k1_bwd.flops,
+                k1_fwd=costs.flash_work(q, k, v)[1])
+
+
+def phase18_counter(fa, dev, card):
+    """(b) Phase 7's training step counted on the card with K1 on and on
+    meta with the plain path; returns (record, K1 launches)."""
+    from repro_torch.analysis.roofline import model_flops_for_cell
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.partitioner import plan_stages
+    from repro_torch.models.layers import kernel_options
+    from repro_torch.optim.adamw import AdamW
+
+    cfg = dataclasses.replace(get_config("chatglm3-6b"), n_layers=4)
+    seq = 2048
+    # phase 7's gang: the planner's K = 2, M = 5 at S = 2
+    eng = pl.EngineConfig(n_trials=2, n_microbatches=5, microbatch=1,
+                          n_stages=2)
+    K, M, S, L = eng.n_trials, eng.n_microbatches, eng.n_stages, cfg.n_layers
+    k1_opts = kernel_options(cfg, remat=True)
+    plain_opts = dataclasses.replace(k1_opts, use_flash_kernel=False)
+    plan = plan_stages(cfg, S)
+    hp = {"lr": [3e-3, 1e-3], "wd": [0.0, 0.01]}
+
+    def counted(device, opts):
+        if device == "meta":
+            params = pl.trial_params_struct(cfg, eng, plan,
+                                            dtype=torch.float32)
+            toks = torch.zeros(K, M, eng.mb_global, seq, dtype=torch.int32,
+                               device="meta")
+        else:
+            gen = torch.Generator(device=device).manual_seed(18)
+            params = pl.init_trial_params(cfg, eng, plan, gen, device=device)
+            toks = torch.randint(0, cfg.vocab_size,
+                                 (K, M, eng.mb_global, seq), generator=gen,
+                                 device=device, dtype=torch.int32)
+        opt = AdamW(grad_clip=1.0)
+        state = opt.init(params)
+        step = pl.make_train_step(cfg, opts, eng, opt)
+        batch = {"tokens": toks, "labels": toks}
+        reset_counts(fa)
+        t = time.perf_counter()
+        with costs.count() as c:
+            _, _, metrics = step(params, state, batch, hp, 0)
+        if device != "meta":
+            torch.cuda.synchronize()
+            assert np.isfinite(metrics["loss"]).all(), metrics
+        return c, time.perf_counter() - t, fa.launches
+
+    card_c, card_s, launches = counted(dev, k1_opts)
+    tidy()
+    meta_c, meta_s, _ = counted("meta", plain_opts)
+    terms = attention_terms(cfg, plain_opts, eng.mb_global, seq)
+    # attention forwards (the K1 launches) and backwards (one per (slot,
+    # layer) use in the graph)
+    n_fwd, n_bwd = launches, K * M * L
+    k1_flops = card_c.flops_by_kind.get("flash_attention", 0)
+    k1_count = card_c.count_by_kind.get("flash_attention", 0)
+    explained = (n_fwd * (terms["k1_fwd"] - terms["plain_fwd"])
+                 + n_bwd * (terms["k1_bwd"] - terms["plain_bwd"]))
+    residual = card_c.flops - meta_c.flops - explained
+    shape = ShapeConfig("phase18_train", seq_len=seq,
+                        global_batch=M * eng.mb_global, kind="train")
+    model = model_flops_per_step(cfg, eng, seq)
+    six_nd = model_flops_for_cell(cfg, shape, K)
+    rec = dict(
+        card=card, arch=cfg.name, n_layers=L, trials=K, microbatches=M,
+        stages=S, seq=seq, dtype="float32", k1_launches=launches,
+        card_count=card_c.to_json(), meta_count=meta_c.to_json(),
+        card_count_s=card_s, meta_count_s=meta_s,
+        attention_terms=terms, n_attention_fwd=n_fwd,
+        n_attention_bwd=n_bwd, explained_flops=explained,
+        residual_flops=residual,
+        relative_difference=(card_c.flops - meta_c.flops) / meta_c.flops,
+        model_flops_per_step=model, six_n_d=six_nd,
+        counted_over_model=card_c.flops / model,
+        counted_over_six_n_d=card_c.flops / six_nd)
+    say("phase 18 (b): counted training step:", json.dumps(
+        {k: v for k, v in rec.items()
+         if k not in ("card_count", "meta_count")}))
+    assert launches > 0 and k1_count == launches, (launches, k1_count)
+    assert k1_flops == n_fwd * terms["k1_fwd"] > 0, \
+        f"the card's count misses K1's forward ({k1_flops})"
+    assert residual == 0, f"phase 18 (b): unexplained FLOPs {residual}"
+    return rec, launches
+
+
+def phase18_fit(dev, card):
+    """(c) falcon-mamba-7b decode_32k at its published shape on the card
+    layout: one decode step, peak memory beside the modeled bytes."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.scheduler import per_chip_bytes, state_bytes
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_card_mesh
+    from repro_torch.models.layers import kernel_options
+
+    cfg, shape = get_config("falcon-mamba-7b"), SHAPES["decode_32k"]
+    eng = dryrun.engine_for_cell(cfg, shape, make_card_mesh(), {})
+    modeled = per_chip_bytes(cfg, eng, shape.seq_len, train=False,
+                             **state_bytes(dryrun.DTYPE)).total \
+        * eng.n_trials
+    opts = kernel_options(cfg, compute_dtype=dryrun.DTYPE)
+    tidy()
+    torch.cuda.reset_peak_memory_stats()
+    s = dryrun.cell_structs(cfg, shape, eng, None, device=dev, seed=18)
+    step = pl.make_serve_step(cfg, opts, eng, "decode")
+    reset_counts(ms)
+    t = time.perf_counter()
+    _, tok, val = step(s["params"], s["cache"], s["batch"])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    K, M, mbg = eng.n_trials, eng.n_microbatches, eng.mb_global
+    assert tuple(tok.shape) == (K, M, mbg), tok.shape
+    assert bool(torch.isfinite(val).all())
+    assert bool(((tok >= 0) & (tok < cfg.vocab_size)).all())
+    # every row decodes the same token from the same (zero) state and
+    # weights, in its own slot: the same answer everywhere
+    assert bool((tok == tok.flatten()[0]).all()), tok.unique()
+    rec = dict(card=card, arch=cfg.name, shape=shape.name,
+               n_layers=cfg.n_layers, trials=K, microbatches=M,
+               rows=K * M * mbg, cache_len=shape.seq_len, dtype="bfloat16",
+               peak_bytes=peak, modeled_bytes=modeled,
+               peak_over_modeled=peak / modeled, step_s=step_s,
+               k3_launches=ms.launches,
+               param_count=cfg.param_count())
+    say("phase 18 (c): falcon-mamba-7b decode_32k on the card:",
+        json.dumps(rec))
+    del s
+    return rec
+
+
+def phase18(fa, dev, card):
+    marks, t = {}, time.perf_counter()
+    grid = phase18_grid(card)
+    marks["a"] = time.perf_counter() - t
+    counter, launches = phase18_counter(fa, dev, card)
+    marks["b"] = time.perf_counter() - t - marks["a"]
+    tidy()
+    fit = phase18_fit(dev, card)
+    marks["c"] = time.perf_counter() - t - marks["a"] - marks["b"]
+    say("phase 18 seconds:", json.dumps(marks))
+    return dict(a=grid, b=counter, c=fit, seconds=marks), launches
+
+
+PHASES = tuple(range(1, 19))
 
 
 def write_json(path: str, res: dict) -> None:
@@ -4018,7 +4210,6 @@ def main(argv=None) -> int:
         return 2
     run = ({int(x) for x in args.phases.split(",")} | {1} if args.phases
            else set(PHASES))
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
@@ -4046,10 +4237,6 @@ def main(argv=None) -> int:
 
     res = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                build_s=build_s)
-
-    def tidy():
-        gc.collect()
-        torch.cuda.empty_cache()
 
     seconds, t_lap = {}, [time.perf_counter()]
 
@@ -4121,6 +4308,9 @@ def main(argv=None) -> int:
     if 17 in run:
         res["phase17"], p17 = phase17(pa, fa, ops, dev, new_flush, card)
         lap(17)
+    if 18 in run:
+        res["phase18"], p18_launches = phase18(fa, dev, card)
+        lap(18)
     res["seconds"] = dict(build=build_s, **seconds)
     say("phase seconds:", json.dumps(res["seconds"]))
     if run != set(PHASES):
@@ -4159,7 +4349,8 @@ def main(argv=None) -> int:
                 "phase16_moe_training": p16["training"],
                 "phase17_frontend_prefill": p17["k1_frontend_prefill"],
                 "phase17_musicgen_prefill": p17["k1_musicgen_prefill"],
-                "phase17_bert_training": p17["k1_bert_training"]}
+                "phase17_bert_training": p17["k1_bert_training"],
+                "phase18_counted_training": p18_launches}
     k3_paths = {"phase10_ssm_serving": ms_launches,
                 "phase14_ssm_training": ms_train_launches}
     kernels = {"kernels": [{

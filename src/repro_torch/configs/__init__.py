@@ -1,15 +1,23 @@
 """Config registry of the PyTorch port: the 10 assigned architectures and
 the paper's own workloads, as ``repro.configs`` has them.
 
-``get_config(name)`` / ``list_archs()`` / ``REGISTRY`` / ``MLP_CONFIG``
-are the public entry points used by the launchers, tests and
-``chip_smoke.py``.
+``get_config(name)`` / ``list_archs()`` / ``REGISTRY`` / ``MLP_CONFIG`` /
+``SHAPES`` / ``input_specs`` are the public entry points used by the
+launchers, the dry-run, tests and ``chip_smoke.py``.
 """
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
     HybridConfig,
     MoEConfig,
     SSMConfig,
+    ShapeConfig,
+    SHAPES,
+    TRAIN_4K,
+    PREFILL_32K,
+    DECODE_32K,
+    LONG_500K,
+    input_specs,
+    shape_applicable,
 )
 
 from repro_torch.configs import (

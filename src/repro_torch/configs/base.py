@@ -1,16 +1,19 @@
-"""Architecture configuration dataclasses (PyTorch port).
+"""Architecture configuration dataclasses and input-shape cells (PyTorch
+port of ``repro/configs/base.py``, without its JAX dependency).
 
-A copy of the architecture half of ``repro/configs/base.py`` without its
-JAX dependency: every architecture is an :class:`ArchConfig`. The
-reference's input-shape cells (``ShapeConfig``, ``SHAPES``) and
-``input_specs`` (which builds ``jax.ShapeDtypeStruct`` stand-ins for the
-dry-run) are not ported: the port has no dry-run yet.
+Every architecture is an :class:`ArchConfig`. The four input-shape cells
+(:class:`ShapeConfig`, ``SHAPES``) and :func:`input_specs` are the
+dry-run's (``launch/dryrun.py``): ``input_specs`` gives the reference's
+keys, shapes and dtypes as tensors on the ``meta`` device, where the
+reference gives ``jax.ShapeDtypeStruct`` stand-ins.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from typing import Optional
+
+import torch
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +103,19 @@ class ArchConfig:
             raise ValueError(f"unknown rope kind {self.rope!r}")
         if self.head_dim == 0 and self.n_heads > 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def is_causal_lm(self) -> bool:
+        return self.family not in ("encoder", "mlp")
+
+    @property
+    def supports_long_context(self) -> bool:
+        """long_500k runs only for sub-quadratic sequence mixers (SSM/hybrid)."""
+        return self.family in ("ssm", "hybrid")
 
     # -- parameter counting (used by memory model + MODEL_FLOPS) -------------
     def layer_param_count(self) -> int:
@@ -209,3 +225,77 @@ class ArchConfig:
             kw["hybrid"] = HybridConfig(attn_every=2, shared_d_ff=64)
             kw["n_layers"] = 5
         return ArchConfig(**kw)
+
+
+# ---------------------------------------------------------------------------
+# Shape cells
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def tokens_per_step(self) -> int:
+        if self.kind == "decode":
+            return self.global_batch  # one new token per sequence
+        return self.seq_len * self.global_batch
+
+
+TRAIN_4K = ShapeConfig("train_4k", seq_len=4_096, global_batch=256, kind="train")
+PREFILL_32K = ShapeConfig("prefill_32k", seq_len=32_768, global_batch=32, kind="prefill")
+DECODE_32K = ShapeConfig("decode_32k", seq_len=32_768, global_batch=128, kind="decode")
+LONG_500K = ShapeConfig("long_500k", seq_len=524_288, global_batch=1, kind="decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether a (arch, shape) cell runs; (False, reason) marks a recorded skip."""
+    if shape.name == "long_500k" and not arch.supports_long_context:
+        return False, "pure full-attention arch: 500k dense-causal decode is " \
+                      "quadratic-cost; sub-quadratic mixing required (DESIGN.md §4)"
+    if not arch.is_causal_lm and shape.kind == "decode":
+        return False, "encoder-only arch has no decode step"
+    return True, ""
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta-tensor stand-ins; no allocation)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(arch: ArchConfig, shape: ShapeConfig,
+                dtype=torch.bfloat16) -> dict:
+    """Meta tensors for every model input of this (arch, shape) cell (the
+    reference's ShapeDtypeStructs: the same keys, shapes and dtypes).
+
+    train:   tokens + labels over the full sequence
+    prefill: tokens (cache is an *output* of prefill)
+    decode:  one new token per sequence + the live cache/state is threaded by
+             the engine (``core/pipeline.py::serve_cache_struct``)
+    Modality frontends (audio/vlm) additionally receive precomputed embeddings
+    for ``n_frontend_tokens`` positions, and M-RoPE position ids for vlm.
+    """
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    meta = lambda shape_, dt: torch.empty(shape_, dtype=dt, device="meta")
+    specs: dict = {}
+    if shape.kind == "train":
+        specs["tokens"] = meta((b, s), i32)
+        specs["labels"] = meta((b, s), i32)
+    elif shape.kind == "prefill":
+        specs["tokens"] = meta((b, s), i32)
+    else:  # decode: one token per sequence, against a cache of length s
+        specs["tokens"] = meta((b, 1), i32)
+        specs["position"] = meta((b,), i32)
+    if arch.frontend is not None and shape.kind != "decode":
+        nf = arch.n_frontend_tokens
+        specs["frontend_embeds"] = meta((b, nf, arch.d_model), dtype)
+    if arch.rope == "mrope" and shape.kind != "decode":
+        specs["mrope_pos"] = meta((3, b, s), i32)
+    return specs

@@ -37,7 +37,7 @@ reference donates them).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -63,8 +63,14 @@ class EngineConfig:
 
     In serving the K trial rows double as the co-serving axis: each row
     holds one model variant's weights and cache, and the serve engine
-    routes per-arch request streams into the matching rows. The reference's
-    mesh-axis names, pod axis and FSDP are not ported.
+    routes per-arch request streams into the matching rows.
+
+    The layout fields after ``vocab_parallel`` are the reference's for a
+    device mesh (the axis names, the pod axis, FSDP, a batch replicated
+    over the data axis). The dry-run records them for its production
+    layouts, and the memory model (``core/scheduler.py``) counts them as
+    the reference does; the steps run none of them and refuse an engine
+    that sets them (:func:`check_runnable`).
     """
 
     n_trials: int  # K — concurrent model variants
@@ -89,6 +95,12 @@ class EngineConfig:
     # (per-shard max / sum-exp, as the reference's psum form) and the
     # embedding's learned positions split over the stages (zero past the
     # table); False = one plain CE over the full head, clamped positions
+    pod_size: int = 1  # size of the pod axis (1 = single pod)
+    stage_axis: str = "model"
+    data_axis: str = "data"
+    pod_axis: Optional[str] = None
+    fsdp: bool = False  # layer weights sharded over the data axis
+    batch_replicated: bool = False  # batch too small to shard (long_500k)
 
     @property
     def n_slots(self) -> int:
@@ -121,6 +133,19 @@ class EngineConfig:
         return -(-vocab // s) * s
 
 
+def check_runnable(eng: EngineConfig) -> None:
+    """Refuse an engine whose layout fields the port does not run: FSDP
+    over several data rows and the pod axis place shards on several
+    devices, and so does a batch replicated over data rows (the port runs
+    one card; over one data row these fields change nothing)."""
+    if eng.pod_size > 1 or (eng.data_size > 1
+                            and (eng.fsdp or eng.batch_replicated)):
+        raise ValueError(
+            "the port runs on one card: pod_size > 1, and fsdp or a "
+            "replicated batch over data rows, are production-layout "
+            "fields (the dry-run records them), not a runnable engine")
+
+
 # ---------------------------------------------------------------------------
 # Parameters: trial-stacked, vocab padded to a multiple of S
 # ---------------------------------------------------------------------------
@@ -148,6 +173,16 @@ def init_trial_params(cfg: ArchConfig, eng: EngineConfig, plan: StagePlan,
         if "head" in params:
             params["head"] = F.pad(params["head"], (0, pad))
     return params
+
+
+def trial_params_struct(cfg: ArchConfig, eng: EngineConfig, plan: StagePlan,
+                        dtype=torch.bfloat16, max_pos: int = 0):
+    """The trial-stacked parameter tree on the ``meta`` device (the
+    dry-run's stand-in for the reference's ShapeDtypeStructs): built by
+    :func:`init_trial_params` itself, so it has that function's leaves,
+    shapes and dtypes, and nothing is allocated."""
+    return init_trial_params(cfg, eng, plan, torch.Generator(), dtype=dtype,
+                             device="meta", max_pos=max_pos)
 
 
 # ---------------------------------------------------------------------------
@@ -404,6 +439,7 @@ def make_train_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
     "grad_norm"} are (K,) numpy arrays. The gradient buffer (one per
     parameter leaf) is allocated at the first call and reused.
     """
+    check_runnable(eng)
     bufs = {}
 
     def step_fn(params, opt_state, batch, hparams, step):
@@ -422,9 +458,12 @@ def make_train_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
         grads, gnorm = reduce_grads(cfg, eng, grads)
         params, opt_state = optimizer.update(params, grads, opt_state,
                                              hparams, step, grad_norm=gnorm)
-        return params, opt_state, {
-            "loss": loss_vec.detach().cpu().numpy(),
-            "grad_norm": gnorm.cpu().numpy()}
+        # (on ``meta`` — the dry-run's counting pass — there is nothing to
+        # read back: the metrics stay tensors)
+        host = (lambda t: t) if gnorm.is_meta else \
+            (lambda t: t.detach().cpu().numpy())
+        return params, opt_state, {"loss": host(loss_vec),
+                                   "grad_norm": host(gnorm)}
 
     return step_fn
 
@@ -698,6 +737,7 @@ def make_serve_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
         raise ValueError(f"unknown serve mode {mode!r} (one of "
                          f"{SERVE_MODES})")
     _check_family(cfg)
+    check_runnable(eng)
     if eng.paged:
         _check_paged_support(cfg, eng)
 

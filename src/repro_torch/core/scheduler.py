@@ -6,7 +6,10 @@ port of ``repro/core/scheduler.py``.
   the serving slot grid (:func:`plan_serve_capacity`);
 * **gang planning** — grouping a trial population into same-architecture
   gangs of size <= K_max and choosing microbatch counts so the pipeline
-  bubble fraction meets a target.
+  bubble fraction meets a target;
+* **failure re-planning** — re-forming the gangs on a data axis shrunk by
+  cordoned rows (:func:`replan_after_failure`, used by
+  ``runtime/elastic.py``).
 
 The memory model is the reference's, per pipeline stage. The device is the
 card: one H100 with 80 GB, and all S stages of a gang share it (the port
@@ -16,8 +19,9 @@ The training state is the port's own (:func:`state_bytes`): parameters and
 their gradient buffer in the parameter dtype, AdamW's m and v in fp32 —
 16 bytes per parameter in fp32, where the reference counts bf16
 parameters with fp32 m, v and master copy (2 + 12). Serving plans count
-the weights in the dtype they are served in (bf16 on the card).
-(Failure re-planning is not ported yet.)
+the weights in the dtype they are served in (bf16 on the card). The
+engine's layout fields (``fsdp``, ``pod_size``, ``batch_replicated``) enter
+the model as in the reference, for the dry-run's production layouts.
 """
 from __future__ import annotations
 
@@ -27,11 +31,12 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.analysis.roofline import HBM_BYTES
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.partitioner import plan_stages
 from repro_torch.core.pipeline import EngineConfig
 
-HBM_BYTES_PER_CHIP = 80 * 1000 ** 3  # one H100 SXM (NVIDIA data sheet)
+HBM_BYTES_PER_CHIP = HBM_BYTES  # one H100 SXM (analysis/roofline.py)
 HBM_BUDGET_FRACTION = 0.9  # headroom for the allocator and workspaces
 
 
@@ -80,10 +85,14 @@ def per_chip_bytes(cfg: ArchConfig, eng: EngineConfig, seq_len: int,
     reference's per-chip model; stage sharding divides layer params by
     n_stages, the vocab-parallel embedding and head by S as well). The
     activation stash covers the in-flight pipeline slots (n_ticks live
-    stage inputs with remat). The defaults are :func:`state_bytes` of
-    fp32: ``opt_bytes_per_param`` counts the gradient buffer and m, v."""
+    stage inputs with remat); FSDP (``eng.fsdp``, a production layout's)
+    further divides layer params by data_size. The defaults are
+    :func:`state_bytes` of fp32: ``opt_bytes_per_param`` counts the
+    gradient buffer and m, v."""
     plan = plan_stages(cfg, eng.n_stages)
     layer_p = cfg.layer_param_count() * plan.layers_per_stage
+    if eng.fsdp:
+        layer_p = math.ceil(layer_p / eng.data_size)
     vocab_p = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
     vocab_p = math.ceil(vocab_p / (eng.n_stages if eng.vocab_parallel else 1))
     shared_p = cfg.shared_block_param_count()
@@ -117,7 +126,8 @@ def _cache_bytes_per_chip(cfg: ArchConfig, eng: EngineConfig,
                           seq_len: int) -> int:
     if eng.paged:
         # the persistent cache is the block pool, not slots × max_seq strips
-        local_blocks = eng.n_blocks // max(eng.data_size, 1)
+        dp = 1 if eng.batch_replicated else eng.data_size * eng.pod_size
+        local_blocks = eng.n_blocks // max(dp, 1)
         return (local_blocks * eng.block_size
                 * kv_token_bytes_per_chip(cfg, eng))
     b_local = eng.microbatch * eng.n_microbatches
@@ -240,7 +250,7 @@ def plan_serve_capacity(cfg: ArchConfig, base_eng: EngineConfig,
         # one slot per stage
         fixed = (est.params_bytes + est.opt_bytes) * k_trials + est.act_bytes
         token_b = kv_token_bytes_per_chip(cfg, eng)
-        dp = eng.data_size
+        dp = 1 if eng.batch_replicated else eng.data_size * eng.pod_size
         per_row = -(-max_seq // block_size)  # serve.paging.blocks_for
         # floor: every (trial, shard) partition backs one max_seq request
         local_blocks = max(
@@ -329,3 +339,30 @@ def plan_gangs(trials: Sequence[TrialSpec], base_eng: EngineConfig,
                                   engine=eng))
             i += k
     return gangs
+
+
+# ---------------------------------------------------------------------------
+# Failure policy (used by runtime/elastic.py)
+# ---------------------------------------------------------------------------
+
+
+def replan_after_failure(gangs: list[GangPlan], base_eng: EngineConfig,
+                         arch_configs: dict, seq_len: int,
+                         lost_data_rows: int) -> list[GangPlan]:
+    """Shrink the data axis by the cordoned rows and re-form gangs.
+
+    A failed device cordons its entire data row (the stage axis is a hard
+    dependency ring; the data axis is the elastic one). Trials keep their
+    identity and resume from the last checkpoint, but the global batch
+    shrinks with the data axis: the engines keep ``microbatch`` and the
+    planner's ``n_microbatches``, so a trial's rows per step,
+    ``n_microbatches · microbatch · data_size``, fall with ``data_size``
+    (and the data pipeline sizes its batches from ``data_size``). The
+    gradients are those of a smaller batch, not a re-sharded one.
+    """
+    new_data = base_eng.data_size - lost_data_rows
+    if new_data < 1:
+        raise RuntimeError("mesh lost all data rows; cannot re-plan")
+    shrunk = dataclasses.replace(base_eng, data_size=new_data)
+    trials = [t for g in gangs for t in g.trials]
+    return plan_gangs(trials, shrunk, arch_configs, seq_len)

@@ -36,6 +36,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.analysis import costs
 from repro_torch.kernels import build as kbuild
 from repro_torch.models.layers import attention_reference
 
@@ -113,6 +114,9 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
     launches += 1
     variant_launches["mma_bf16" if q.dtype == torch.bfloat16
                      else "fp32"] += 1
+    if costs.counting():
+        costs.record_launch("flash_attention", *costs.flash_work(
+            q, k, v, causal, window, kv_offset)[:2])
     return out
 
 

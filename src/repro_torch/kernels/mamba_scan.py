@@ -29,6 +29,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.analysis import costs
 from repro_torch.kernels import build as kbuild
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "mamba_scan.cu"
@@ -103,6 +104,8 @@ def mamba_scan_kernel(da, dbx, cmat, h0):
         raise kbuild.KernelLaunchError(
             f"mamba_scan launch failed: CUDA error {rc}")
     launches += 1
+    if costs.counting():
+        costs.record_launch("mamba_scan", *costs.scan_work(da, dbx, cmat, h0))
     return y, h
 
 

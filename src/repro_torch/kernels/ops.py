@@ -3,7 +3,9 @@
 Each op sends a CPU tensor to the plain PyTorch version and a CUDA tensor
 to the hand-written CUDA kernel — by the tensor's device alone: no
 environment switch and no fallback (a kernel that fails to build or
-launch raises).
+launch raises). A ``meta`` tensor (the dry-run's) is refused: it has no
+data for the kernel, and the plain version stands in for the kernel only
+on the CPU.
 """
 from __future__ import annotations
 
@@ -12,6 +14,19 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import paged_attention as pa
+
+
+def _route(t, plain, kernel):
+    """``plain`` for a CPU tensor, ``kernel`` for a CUDA one; raises for a
+    meta tensor."""
+    if t.device.type == "meta":
+        raise ValueError(
+            f"{kernel.__name__} got a meta tensor: a CUDA kernel needs "
+            f"data on the card (and its plain version runs for CPU tensors "
+            f"only). The dry-run counts the plain path: leave "
+            f"use_flash_kernel, use_mamba_kernel and use_paged_kernel off "
+            f"on meta")
+    return plain if t.device.type == "cpu" else kernel
 
 
 # ---------------------------------------------------------------------------
@@ -31,8 +46,7 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, kv_offset, block_q, block_k):
         ctx.save_for_backward(q, k, v)
         ctx.args = (causal, window, kv_offset, block_q, block_k)
-        fn = (fa.flash_attention_plain if q.device.type == "cpu"
-              else fa.flash_attention_kernel)
+        fn = _route(q, fa.flash_attention_plain, fa.flash_attention_kernel)
         return fn(q, k, v, causal=causal, window=window, kv_offset=kv_offset)
 
     @staticmethod
@@ -76,8 +90,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, kv_offset, kv_len, *,
     per-row cache depth / live length; ``q_lens (b,)`` optional per-row
     real query counts. Returns (b, sq, hq, hd). See
     ``kernels/paged_attention.py`` for the masking contract."""
-    fn = (pa.paged_attention_plain if q.device.type == "cpu"
-          else pa.paged_attention_kernel)
+    fn = _route(q, pa.paged_attention_plain, pa.paged_attention_kernel)
     return fn(q, k_pool, v_pool, block_tables, kv_offset, kv_len,
               causal=causal, window=window, q_lens=q_lens)
 
@@ -97,8 +110,7 @@ class _MambaScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, da, dbx, cmat, h0):
         ctx.save_for_backward(da, dbx, cmat, h0)
-        fn = (ms.mamba_scan_plain if da.device.type == "cpu"
-              else ms.mamba_scan_kernel)
+        fn = _route(da, ms.mamba_scan_plain, ms.mamba_scan_kernel)
         return fn(da, dbx, cmat, h0)
 
     @staticmethod

@@ -47,6 +47,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.analysis import costs
 from repro_torch.kernels import build as kbuild
 from repro_torch.models.layers import attention_reference
 
@@ -197,6 +198,10 @@ def paged_attention_kernel(q, k_pool, v_pool, block_tables, kv_offset,
             f"paged_attention launch failed ({variant}): CUDA error {rc}")
     launches += 1
     variant_launches[variant] += 1
+    if costs.counting():
+        costs.record_launch("paged_attention", *costs.paged_launch_work(
+            q, k_pool, tables, off, window,
+            None if q_lens is None else ql)[:2])
     return out
 
 

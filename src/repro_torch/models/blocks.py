@@ -109,7 +109,9 @@ def _dense_write(cache, k, v, start, write_mask=None, q_lens=None):
     s, s_cache = k.shape[1], cache["k"].shape[1]
     rows = (range(k.shape[0]) if write_mask is None
             else write_mask.nonzero().flatten().tolist())
-    starts = start.tolist()
+    # on ``meta`` (the dry-run's counting pass) the offsets have no values
+    # to read back; each row's write moves the same bytes at any offset
+    starts = [0] * k.shape[0] if start.is_meta else start.tolist()
     ql = None if q_lens is None else q_lens.tolist()
     for r in rows:
         if ql is None:

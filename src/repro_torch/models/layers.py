@@ -269,6 +269,9 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     return torch.cat(blocks, dim=1)[:, :sq]
 
 
+DIRECT_ATTENTION_SCORES = 512 * 512  # the most scores a row computes directly
+
+
 def attention(q, k, v, *, causal: bool, window: int = 0, kv_offset=0,
               kv_len=None, opts: ModelOptions):
     """Dispatch, under the reference's conditions: the flash kernel
@@ -282,7 +285,7 @@ def attention(q, k, v, *, causal: bool, window: int = 0, kv_offset=0,
         from repro_torch.kernels import ops as kernel_ops
         return kernel_ops.flash_attention(
             q, k, v, causal=causal, window=window, kv_offset=int(kv_offset))
-    if sq == 1 or sq * sk <= 512 * 512:
+    if sq == 1 or sq * sk <= DIRECT_ATTENTION_SCORES:
         return attention_reference(q, k, v, causal=causal, window=window,
                                    kv_offset=kv_offset, kv_len=kv_len)
     return chunked_attention(q, k, v, causal=causal, window=window,
