@@ -1,11 +1,12 @@
-"""Smoke test of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
+"""Smoke test of the PyTorch port (src/repro_torch) on an NVIDIA GPU (phase
+19 (b) also uses every other card it sees).
 
 Run from the root of a checkout on a machine with a CUDA card (H100):
 
     python3 chip_smoke.py [--out results.json] [--phases 2,3,5]
 
 It builds the hand-written CUDA kernels from the checkout's sources (one
-nvcc per source, all started together) and runs eighteen phases, each a hard
+nvcc per source, all started together) and runs nineteen phases, each a hard
 assert; it exits 0 only if every phase passed, and exits non-zero without
 a result when no CUDA device is visible. ``--phases`` runs a subset (the
 build always runs) and then prints neither the kernels line nor the last
@@ -186,7 +187,8 @@ line.
    routed alone), capacity factor E / k (nothing dropped): 0 mismatches
    against the oracle for granite, then for llama4-scout (its 25 GB of
    weights shared with the oracle, freed after), K2's launches = calls x
-   slots x layers. (c) Granite at all 32 layers in bf16 at the launcher's
+   slots x layers. (c) Granite at its first 8 of 32 layers
+   (``P16C_LAYERS``) in bf16 at the launcher's
    factor 1.25 on phase 5's grid and trace (``paged_serve_path``, phase
    5's checks and records); one profiled decode and one append call:
    host ops and the card's busy ms by region (``busy_by_region``: expert
@@ -243,7 +245,21 @@ line.
    allocated and run for one decode step through ``make_serve_step``
    with the launcher's kernel options: the measured peak memory beside
    the modeled bytes.
-19. A {"kernels": [...]} line for every ported kernel, the card line, and
+19. Hydra's training mesh on device layouts (``core/pipeline.py`` with
+   ``layout=``): the number of visible cards first. (a) chatglm3-6b at
+   every published width, 4 layers, fp32, K 2, M 5, seq 2048, remat, K1:
+   2 steps of the placed train step on a data 2 x model 2 FSDP layout over
+   ``["cuda:0"] * 4`` against 2 steps of the one-device step (2 logical
+   data shards) from the same weights and batches: losses within 2e-4,
+   grad norms and parameters within 5e-3; K1's launches (set to 0 just
+   before the placed steps) = 2 replicas x 2 steps x 10 slots x (3 x 4 -
+   1); step ms and peak memory beside the planner's per-chip bytes. (b)
+   Only where several cards are visible (otherwise it says it did not
+   run): stage s on cuda:s (data 1 x model 2, the same rows as a
+   microbatch of 2) and, with 4 cards, (a)'s FSDP layout on cuda:0-3,
+   each against (a)'s one-device step by the same gates, with each card's
+   peak memory beside ``per_chip_bytes`` and the step ms beside (a)'s.
+20. A {"kernels": [...]} line for every ported kernel, the card line, and
    the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 from __future__ import annotations
@@ -3080,6 +3096,10 @@ def phase15(fa, dev, card):
 
 GRANITE, SCOUT = "granite-moe-3b-a800m", "llama4-scout-17b-a16e"
 GRANITE_HEADS = (24, 8, 64)  # query heads, KV heads, head_dim: group 3
+# phase 16 (c)'s depth: the first 8 of granite's 32 layers, every width as
+# published (cut to make room for phase 19: at 16 layers (c) took 59.0 s
+# and the script 1056.3 s of its 1200 s on an NVIDIA H100 80GB HBM3)
+P16C_LAYERS = 8
 # K2 at granite's serving shapes (``CASES`` rows: phase 2's original decode
 # and append sweep, then phase 5's own shapes) and K1 at its training shape
 # (a ``FLASH_CASES`` row)
@@ -3448,8 +3468,9 @@ def phase16(pa, fa, ops, dev, new_flush, card):
     out["b"] = phase16_serve_exact(pa, dev, card)
     mark("b_serve_exact")
 
-    # (c) granite at full depth, bf16, the launcher's capacity factor
-    cfg = get_config(GRANITE)
+    # (c) granite at P16C_LAYERS of its 32 layers, bf16, the launcher's
+    # capacity factor
+    cfg = dataclasses.replace(get_config(GRANITE), n_layers=P16C_LAYERS)
     opts = kernel_options(cfg, compute_dtype=torch.bfloat16,
                           use_paged_kernel=True)
     rec, serve_launches, ctx = paged_serve_path(pa, cfg, opts, dev, card)
@@ -3491,7 +3512,8 @@ def phase16(pa, fa, ops, dev, new_flush, card):
         L.moe_apply = real
     assert n_checked[0] == ctx["eng"].n_slots * cfg.n_layers, n_checked
     rec["sync_free_moe_apply_calls"] = n_checked[0]
-    say("phase 16 (c): full granite-moe-3b-a800m bf16 paged serving:",
+    say(f"phase 16 (c): granite-moe-3b-a800m {P16C_LAYERS} layers bf16 "
+        f"paged serving:",
         json.dumps(rec))
     out["c"] = rec
     del ctx, engine, make
@@ -4186,7 +4208,178 @@ def phase18(fa, dev, card):
     return dict(a=grid, b=counter, c=fit, seconds=marks), launches
 
 
-PHASES = tuple(range(1, 19))
+# ---------------------------------------------------------------------------
+# Phase 19: Hydra's training mesh on device layouts
+# ---------------------------------------------------------------------------
+
+P19_LAYERS, P19_STEPS, P19_SEED = 4, 2, 19
+
+
+def cuda_indices(layout, dev):
+    """The CUDA device indices a layout (or, without one, ``dev``) uses."""
+    if layout is None:
+        return [dev.index or 0]
+    return sorted({d.index for d in layout.devices.flat})
+
+
+def train_steps(fa, cfg, opts, eng, batches, dev, card, layout=None):
+    """``P19_STEPS`` steps of ``make_train_step`` on ``cfg`` from the
+    seeded weights (drawn on ``dev``, then placed on ``layout`` when one is
+    given), AdamW with clipping and phase 6's per-trial hyperparameters;
+    K1's launches counted over the steps alone (set to 0 just before the
+    first, read just after the last). Returns (record, the final
+    trial-stacked parameters on the host)."""
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.partitioner import plan_stages
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import tree_map
+
+    gen = torch.Generator(device=dev).manual_seed(P19_SEED)
+    params = pl.init_trial_params(cfg, eng, plan_stages(cfg, eng.n_stages),
+                                  gen, device=dev)
+    if layout is not None:
+        params = pl.place_trial_params(cfg, eng, params, layout)
+    tidy()
+    opt = AdamW(grad_clip=1.0)
+    state = opt.init(params)
+    step = pl.make_train_step(cfg, opts, eng, opt, layout=layout)
+    cards = cuda_indices(layout, dev)
+    sync = lambda: [torch.cuda.synchronize(i) for i in cards]
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+    losses, norms, step_s = [], [], []
+    reset_counts(fa)  # this path's launches only
+    for i, batch in enumerate(batches):
+        sync()
+        t = time.perf_counter()
+        params, state, met = step(params, state, batch, TRAIN_HP, i)
+        sync()
+        step_s.append(time.perf_counter() - t)
+        losses.append(met["loss"].tolist())
+        norms.append(met["grad_norm"].tolist())
+    launches = fa.launches
+    rec = dict(
+        card=card, layout=None if layout is None else layout.describe(),
+        device=str(dev) if layout is None else None, data=eng.data_size,
+        stages=eng.n_stages, fsdp=eng.fsdp, microbatch=eng.microbatch,
+        losses=losses, grad_norms=norms, step_ms_all=[1e3 * s for s in
+                                                      step_s],
+        step_ms=1e3 * step_s[-1], k1_launches=launches,
+        max_memory_allocated_gb={f"cuda:{i}": torch.cuda
+                                 .max_memory_allocated(i) / 1e9
+                                 for i in cards})
+    host = (tree_map(lambda t: t.to("cpu", copy=True), params)
+            if layout is None else
+            pl.gather_trial_params(cfg, eng, params, layout, "cpu"))
+    del params, state, step
+    tidy()
+    return rec, host
+
+
+def held_to(rec, ref, host, ref_host, name):
+    """The gates of ``tests/test_torch_train_pipeline.py``: losses within
+    2e-4, grad norms and parameters within 5e-3 of ``ref``'s."""
+    from repro_torch.tree import tree_leaves
+
+    loss_err = max(abs(a - b) for x, y in zip(rec["losses"], ref["losses"])
+                   for a, b in zip(x, y))
+    norm_err = max(abs(a - b) for x, y in zip(rec["grad_norms"],
+                                              ref["grad_norms"])
+                   for a, b in zip(x, y))
+    param_err = max(float((a - b).abs().max())
+                    for a, b in zip(tree_leaves(host),
+                                    tree_leaves(ref_host)))
+    rec.update(max_loss_err=loss_err, max_grad_norm_err=norm_err,
+               max_param_err=param_err)
+    say(f"phase 19 {name}:", json.dumps(rec))
+    assert loss_err < 2e-4, f"phase 19 {name}: loss error {loss_err}"
+    assert norm_err < 5e-3, f"phase 19 {name}: grad norm error {norm_err}"
+    assert param_err < 5e-3, f"phase 19 {name}: param error {param_err}"
+
+
+def phase19(fa, dev, card):
+    """(a) chatglm3-6b at every published width, ``P19_LAYERS`` layers,
+    fp32, K 2, M 5, seq 2048, remat, K1: the placed train step on a data 2
+    × model 2 FSDP layout over ``["cuda:0"] * 4`` against the one-device
+    step (2 logical data shards) from the same weights and batches; (b)
+    where several cards exist, stage s on cuda:s (data 1 × model 2, the
+    same rows as a microbatch of 2) and, with 4 cards, the data 2 × model
+    2 FSDP layout on cuda:0-3, each against (a)'s one-device step, with
+    each card's peak beside the planner's per-chip bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.scheduler import per_chip_bytes, state_bytes
+    from repro_torch.data.pipeline import TrainBatches
+    from repro_torch.launch.mesh import make_device_layout
+    from repro_torch.models.layers import kernel_options
+
+    n_cards = torch.cuda.device_count()
+    say(f"phase 19: torch.cuda.device_count() = {n_cards}")
+    cfg = dataclasses.replace(get_config("chatglm3-6b"),
+                              n_layers=P19_LAYERS)
+    opts = kernel_options(cfg, remat=True)
+    seq, L = 2048, cfg.n_layers
+    one = pl.EngineConfig(n_trials=2, n_microbatches=5, microbatch=1,
+                          n_stages=2, data_size=2)
+    fsdp = dataclasses.replace(one, fsdp=True)
+    data = TrainBatches(cfg, one, seq, seed=0)
+    batches = [data.batch_for_step(i) for i in range(P19_STEPS)]
+    data.close()
+    # launches a step: three forwards of each layer per slot and row
+    # block, less the layer recompute checkpoint's early stop skips in
+    # each stage before the last (phase 7's rule), once per replica
+    per_replica = P19_STEPS * one.n_slots * (3 * L - (one.n_stages - 1))
+
+    def planner_gb(eng):  # one stage of one replica: K trials' state
+        return per_chip_bytes(cfg, eng, seq, True,
+                              **state_bytes(torch.float32)).total \
+            * eng.n_trials / 1e9
+
+    out = {}
+    t = time.perf_counter()
+    ref, ref_host = train_steps(fa, cfg, opts, one, batches, dev, card)
+    assert ref["k1_launches"] == per_replica, ref["k1_launches"]
+    say("phase 19 (a) one device:", json.dumps(ref))
+    out["one_device"] = ref
+    layout = make_device_layout(2, 2, devices=["cuda:0"] * 4)
+    rec, host = train_steps(fa, cfg, opts, fsdp, batches, dev, card, layout)
+    rec["expected_k1_launches"] = 2 * per_replica
+    rec["planner_gb_per_layout_entry"] = planner_gb(fsdp)
+    rec["planner_gb_card"] = 4 * planner_gb(fsdp)
+    rec["step_ms_over_one_device"] = rec["step_ms"] / ref["step_ms"]
+    held_to(rec, ref, host, ref_host, "(a) data 2 x model 2 FSDP on "
+            "cuda:0 x 4")
+    assert rec["k1_launches"] == 2 * per_replica, rec["k1_launches"]
+    out["a"], main_launches = rec, rec["k1_launches"]
+    del host
+    out["seconds_a"] = time.perf_counter() - t
+
+    out["b"] = []
+    if n_cards < 2:
+        say(f"phase 19 (b): not run: {n_cards} CUDA device(s) visible, the "
+            f"placement across cards needs at least 2")
+        out["b_not_run"] = f"{n_cards} CUDA device(s)"
+        return out, main_launches
+    cases = [("(b) data 1 x model 2 on cuda:0-1",
+              dataclasses.replace(one, microbatch=2, data_size=1),
+              make_device_layout(1, 2), per_replica)]
+    if n_cards >= 4:
+        cases.append(("(b) data 2 x model 2 FSDP on cuda:0-3", fsdp,
+                      make_device_layout(2, 2), 2 * per_replica))
+    for name, eng, lay, want in cases:
+        rec, host = train_steps(fa, cfg, opts, eng, batches, dev, card, lay)
+        rec["expected_k1_launches"] = want
+        rec["planner_gb_per_card"] = planner_gb(eng)
+        rec["step_ms_over_one_device"] = rec["step_ms"] / ref["step_ms"]
+        rec["step_ms_over_a"] = rec["step_ms"] / out["a"]["step_ms"]
+        held_to(rec, ref, host, ref_host, name)
+        assert rec["k1_launches"] == want, rec["k1_launches"]
+        out["b"].append(rec)
+        del host
+    return out, main_launches
+
+
+PHASES = tuple(range(1, 20))
 
 
 def write_json(path: str, res: dict) -> None:
@@ -4311,6 +4504,9 @@ def main(argv=None) -> int:
     if 18 in run:
         res["phase18"], p18_launches = phase18(fa, dev, card)
         lap(18)
+    if 19 in run:
+        res["phase19"], p19_launches = phase19(fa, dev, card)
+        lap(19)
     res["seconds"] = dict(build=build_s, **seconds)
     say("phase seconds:", json.dumps(res["seconds"]))
     if run != set(PHASES):
@@ -4350,7 +4546,8 @@ def main(argv=None) -> int:
                 "phase17_frontend_prefill": p17["k1_frontend_prefill"],
                 "phase17_musicgen_prefill": p17["k1_musicgen_prefill"],
                 "phase17_bert_training": p17["k1_bert_training"],
-                "phase18_counted_training": p18_launches}
+                "phase18_counted_training": p18_launches,
+                "phase19_placed_training": p19_launches}
     k3_paths = {"phase10_ssm_serving": ms_launches,
                 "phase14_ssm_training": ms_train_launches}
     kernels = {"kernels": [{

@@ -11,7 +11,8 @@ joined by "/", dicts in sorted key order), and bf16 leaves are stored as
 their uint16 bits under ``name::bf16``, so a checkpoint the JAX package
 wrote restores into the port and the other way round. Trees are nested
 dicts / lists / tuples of tensors (or numpy arrays); ``restore`` puts each
-leaf on the template leaf's device and dtype.
+leaf on the template leaf's device and dtype (a ``meta`` template leaf
+gives shape and dtype only, and its leaf comes back on the CPU).
 """
 from __future__ import annotations
 
@@ -65,7 +66,8 @@ def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict] = None,
 def restore(ckpt_dir: str, step: int, template: Any,
             process_index: int = 0) -> Any:
     """Restore into the structure of ``template`` (values replaced): each
-    leaf becomes a tensor on the template leaf's device, in its dtype."""
+    leaf becomes a tensor on the template leaf's device, in its dtype; a
+    ``meta`` template leaf's on the CPU."""
     step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
     with np.load(os.path.join(step_dir, f"proc{process_index:05d}.npz")) as z:
         data = {}
@@ -86,7 +88,8 @@ def restore(ckpt_dir: str, step: int, template: Any,
                 f"leaf {name!r}: checkpoint shape {tuple(arr.shape)} != "
                 f"{want}")
         if torch.is_tensor(leaf):
-            arr = arr.to(device=leaf.device, dtype=leaf.dtype)
+            arr = arr.to(device="cpu" if leaf.is_meta else leaf.device,
+                         dtype=leaf.dtype)
         return arr
 
     return tree_map(load, template, tree_paths(template))

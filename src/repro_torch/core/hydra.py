@@ -2,9 +2,11 @@
 model selection — port of ``repro/core/hydra.py`` (the paper's Fig. 3,
 with Cerebro's role played by ``core.trials``).
 
-Each gang's K trials train as one pipelined program over S stages in one
-process on one device (``core.pipeline.make_train_step``); parameters and
-optimizer state are updated in place.
+Each gang's K trials train as one pipelined program over S stages
+(``core.pipeline.make_train_step``), in one process on one device, or,
+given a device layout, with every stage and data replica on its own
+device of the layout; parameters and optimizer state are updated in
+place.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ from repro_torch.launch.mesh import resolve_device
 from repro_torch.models.layers import ModelOptions
 from repro_torch.obs.tracer import resolve
 from repro_torch.optim.adamw import AdamW
-from repro_torch.runtime.fault_tolerance import LoopConfig, run_with_restarts
+from repro_torch.runtime.fault_tolerance import (LoopConfig, StateCodec,
+                                                 run_with_restarts)
 
 
 @dataclasses.dataclass
@@ -39,17 +42,51 @@ class HydraConfig:
     param_dtype: torch.dtype = torch.float32
 
 
+def placed_state_codec(cfg: ArchConfig, eng: pl.EngineConfig,
+                       layout) -> StateCodec:
+    """Checkpoint a placed (params, opt_state) as the one-device tree: the
+    parameters and every placed tree of the optimizer state gathered, its
+    step count as it is."""
+    def gather(state, device):
+        params, opt = state
+        g = lambda tree: pl.gather_trial_params(cfg, eng, tree, layout,
+                                                device)
+        return g(params), {n: g(v) if isinstance(v, list) else v
+                           for n, v in opt.items()}
+
+    def scatter(tree, state):
+        params, opt = state
+        s = lambda full, placed: pl.scatter_trial_params_(cfg, eng, placed,
+                                                          full, layout)
+        s(tree[0], params)
+        for n, v in opt.items():
+            if isinstance(v, list):
+                s(tree[1][n], v)
+            else:
+                v.copy_(tree[1][n])
+        return state
+
+    return StateCodec(gather, scatter)
+
+
 class HydraRunner:
     """Runs one gang (same-arch trials) as a single pipelined program on
-    ``device`` (CUDA unless the caller passes "cpu")."""
+    ``device`` (CUDA unless the caller passes "cpu"), or on ``layout`` (a
+    ``launch.mesh.DeviceLayout``): the gang's weights are initialised on
+    the layout's root device, from the same generator as on one device,
+    and then placed."""
 
     def __init__(self, cfg: ArchConfig, opts: ModelOptions,
                  hydra_cfg: HydraConfig, optimizer: Optional[AdamW] = None,
-                 tracer=None, device=None):
+                 tracer=None, device=None, layout=None):
         self.cfg, self.opts = cfg, opts
         self.hc = hydra_cfg
         self.optimizer = optimizer or AdamW(grad_clip=1.0)
-        self.device = resolve_device(device)
+        if layout is not None and device is not None:
+            raise ValueError("pass a device or a layout, not both")
+        self.layout = layout
+        self.device = (layout.root if layout is not None
+                       else resolve_device(device))
         # gang/rung wall-clock spans for the obs timeline (NULL_TRACER when
         # off — span emission is two events per gang, never per step)
         self.trace = resolve(tracer)
@@ -62,6 +99,9 @@ class HydraRunner:
         params = pl.init_trial_params(self.cfg, eng, plan, gen,
                                       dtype=self.hc.param_dtype,
                                       device=self.device, max_pos=max_pos)
+        if self.layout is not None:
+            params = pl.place_trial_params(self.cfg, eng, params,
+                                           self.layout)
         opt_state = self.optimizer.init(params)
         hparams = {
             "lr": torch.tensor([t.lr for t in gang.trials],
@@ -70,7 +110,7 @@ class HydraRunner:
                                dtype=torch.float32, device=self.device),
         }
         step_fn = pl.make_train_step(self.cfg, self.opts, eng,
-                                     self.optimizer)
+                                     self.optimizer, layout=self.layout)
         return params, opt_state, hparams, step_fn
 
     def run_gang(self, gang: GangPlan, n_steps: Optional[int] = None
@@ -109,7 +149,9 @@ class HydraRunner:
                 one_step, (params, opt_state),
                 LoopConfig(n_steps=n_steps,
                            checkpoint_every=self.hc.checkpoint_every,
-                           ckpt_dir=ckpt_dir))
+                           ckpt_dir=ckpt_dir),
+                codec=(None if self.layout is None else
+                       placed_state_codec(self.cfg, eng, self.layout)))
         finally:
             data.close()
         params, opt_state = report.final_state
@@ -135,17 +177,20 @@ class HydraRunner:
         data.close()
         with torch.no_grad():
             loss, _ = pl.pipeline_train_loss(self.cfg, self.opts,
-                                             gang.engine, params, batch)
+                                             gang.engine, params, batch,
+                                             layout=self.layout)
         return loss.cpu().numpy()
 
 
 def run_model_selection(cfg: ArchConfig, opts: ModelOptions,
                         hydra_cfg: HydraConfig, trials: Sequence[TrialSpec],
                         base_eng: pl.EngineConfig, strategy=None,
-                        tracer=None, device=None) -> dict:
+                        tracer=None, device=None, layout=None) -> dict:
     """Full Hydra workflow: plan gangs, train them shard-parallel, select.
-    (The reference's ``mesh`` argument is gone: the stage and data axes
-    are structure inside one process on ``device``.)
+    The reference's ``mesh`` is ``layout`` (a ``launch.mesh.DeviceLayout``
+    of ``base_eng``'s pod, data and stage sizes: each gang runs placed on
+    it); without one the stage and data axes are structure inside one
+    process on ``device``.
 
     ``tracer`` (``repro_torch.obs.Tracer``) wraps each successive-halving
     rung — every ``train_fn`` invocation — and each gang in wall-clock
@@ -154,7 +199,8 @@ def run_model_selection(cfg: ArchConfig, opts: ModelOptions,
     Returns {"best": TrialResult, "all": [TrialResult...]}.
     """
     trace = resolve(tracer)
-    runner = HydraRunner(cfg, opts, hydra_cfg, tracer=tracer, device=device)
+    runner = HydraRunner(cfg, opts, hydra_cfg, tracer=tracer, device=device,
+                         layout=layout)
     all_results: list[TrialResult] = []
     rung = [0]  # train_fn call index (a halving strategy calls it per rung)
 

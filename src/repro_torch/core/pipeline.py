@@ -1,10 +1,26 @@
-"""Hydra's pipelined multi-trial programs — training and serving — run in
+"""Hydra's pipelined multi-trial programs — training and serving — run by
 one process (PyTorch port of ``repro/core/pipeline.py``).
 
-The reference compiles one SPMD program over a (data × model) device mesh;
-the port keeps the schedule's semantics exactly — the tests compare losses,
-gradients, tokens, ticks and call counts with the reference — and runs the
-mesh as structure inside one process on one device:
+The reference compiles one SPMD program over a (data × model) or (pod ×
+data × model) device mesh. The port keeps the schedule's semantics
+exactly — the tests compare losses, gradients, tokens, ticks and call
+counts with the reference — and runs it in one of two ways:
+
+* **one device** (no layout; every serving call and the default train
+  step): the mesh is structure inside one process on one device;
+* **a device layout** (``make_train_step(..., layout=)``, training only):
+  stage ``s`` of data replica ``(p, d)`` runs on device ``(p, d, s)`` of a
+  ``launch.mesh.DeviceLayout``, each device holding its own shard of the
+  parameters (:func:`place_trial_params`, the counterpart of
+  ``param_pspecs``). One process issues every (stage, replica) unit on its
+  own device; activations hop with ``.to``, the vocab-parallel partials
+  are added on stage 0 and stage S−1 (the reference's psums), FSDP
+  gathers each layer's full weights on the unit's device (its autograd is
+  the reduce-scatter), and replicated leaves get their gradients summed
+  over replicas (:func:`reduce_placed_grads`). One ``backward()`` runs
+  through all devices.
+
+What the one-device form does with the mesh:
 
   * **stages.** Each tick ``t`` advances stage ``s`` on slot ``t - s`` in the
     reference's tick order; activations hop stage to stage through a Python
@@ -49,7 +65,7 @@ from repro_torch.core.partitioner import StagePlan, plan_stages
 from repro_torch.models import blocks as B
 from repro_torch.models import lm
 from repro_torch.models.layers import ModelOptions
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
 
 # ---------------------------------------------------------------------------
@@ -67,15 +83,16 @@ class EngineConfig:
 
     The layout fields after ``vocab_parallel`` are the reference's for a
     device mesh (the axis names, the pod axis, FSDP, a batch replicated
-    over the data axis). The dry-run records them for its production
-    layouts, and the memory model (``core/scheduler.py``) counts them as
-    the reference does; the steps run none of them and refuse an engine
-    that sets them (:func:`check_runnable`).
+    over the data axis). The placed train step runs them on a device
+    layout; the dry-run records them for its production layouts, and the
+    memory model (``core/scheduler.py``) counts them as the reference
+    does. Without a layout the steps refuse an engine whose fields need
+    one (:func:`check_runnable`).
     """
 
     n_trials: int  # K — concurrent model variants
     n_microbatches: int  # M — slots per trial per call
-    microbatch: int  # rows per (slot × data shard)
+    microbatch: int  # rows per (slot × data (× pod) replica)
     n_stages: int  # S — pipeline stages
     data_size: int = 1  # logical data shards (pool partitions per trial)
     max_seq: int = 0  # per-request token capacity
@@ -111,8 +128,16 @@ class EngineConfig:
         return self.n_slots + self.n_stages - 1
 
     @property
+    def dp_degree(self) -> int:
+        """Data-parallel replicas: the data axis times the pod axis."""
+        return self.data_size * self.pod_size
+
+    @property
     def mb_global(self) -> int:
-        return self.microbatch * self.data_size
+        """Rows of one global microbatch: every replica's ``microbatch``
+        rows, or one replica's when the batch is replicated."""
+        return self.microbatch * (1 if self.batch_replicated
+                                  else self.dp_degree)
 
     @property
     def bubble_fraction(self) -> float:
@@ -134,16 +159,26 @@ class EngineConfig:
 
 
 def check_runnable(eng: EngineConfig) -> None:
-    """Refuse an engine whose layout fields the port does not run: FSDP
-    over several data rows and the pod axis place shards on several
-    devices, and so does a batch replicated over data rows (the port runs
-    one card; over one data row these fields change nothing)."""
+    """Refuse, for the one-device steps, an engine whose layout fields
+    need a device layout: FSDP over several data rows and the pod axis
+    place shards on several devices, and so does a batch replicated over
+    data rows (over one data row these fields change nothing). The
+    placed train step runs them (``make_train_step(..., layout=)``)."""
     if eng.pod_size > 1 or (eng.data_size > 1
                             and (eng.fsdp or eng.batch_replicated)):
         raise ValueError(
-            "the port runs on one card: pod_size > 1, and fsdp or a "
-            "replicated batch over data rows, are production-layout "
-            "fields (the dry-run records them), not a runnable engine")
+            "without a device layout the port runs on one card: pod_size "
+            "> 1, and fsdp or a replicated batch over data rows, need the "
+            "placed train step (make_train_step(..., layout=))")
+
+
+def check_layout(eng: EngineConfig, layout) -> None:
+    """The layout's (pod, data, model) grid must be the engine's."""
+    want = (eng.pod_size, eng.data_size, eng.n_stages)
+    if tuple(layout.devices.shape) != want:
+        raise ValueError(f"the engine's (pod, data, model) sizes {want} do "
+                         f"not match the layout's "
+                         f"{tuple(layout.devices.shape)}")
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +218,144 @@ def trial_params_struct(cfg: ArchConfig, eng: EngineConfig, plan: StagePlan,
     shapes and dtypes, and nothing is allocated."""
     return init_trial_params(cfg, eng, plan, torch.Generator(), dtype=dtype,
                              device="meta", max_pos=max_pos)
+
+
+# ---------------------------------------------------------------------------
+# Placement on a device layout: the counterpart of ``param_pspecs``
+# ---------------------------------------------------------------------------
+
+
+def fsdp_dim(layer_leaf_shape, data_size: int) -> Optional[int]:
+    """The dim of one layer's leaf that FSDP splits over the data axis (the
+    reference's ``_fsdp_dim``): the first dim divisible by the data size;
+    vectors stay replicated."""
+    if len(layer_leaf_shape) < 2:
+        return None
+    for d, size in enumerate(layer_leaf_shape):
+        if size % data_size == 0 and size >= data_size:
+            return d
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """How one trial-stacked leaf lies on a device layout: the axis split
+    over the stages and the axis split over the data rows (None = that
+    axis replicates the leaf)."""
+
+    stage: Optional[int] = None
+    data: Optional[int] = None
+
+
+def param_splits(cfg: ArchConfig, eng: EngineConfig):
+    """A :class:`Split` per parameter leaf, as the reference's
+    ``param_pspecs`` places it:
+
+    layers/*   : (K, Lp, ...)   -> stage axis 1, FSDP dim over data
+    embed/tok  : (K, Vp, D)     -> stage axis 1      [vocab-parallel]
+    embed/pos  : (K, maxpos, D) -> stage axis 1      [position-parallel]
+    head       : (K, D, Vp)     -> stage axis 2      [vocab-parallel]
+    final_norm, shared/*        -> replicated
+    """
+    struct = trial_params_struct(cfg, eng, plan_stages(cfg, eng.n_stages),
+                                 max_pos=eng.n_stages)
+
+    def split(leaf, name):
+        if name.startswith("layers/"):
+            d = fsdp_dim(leaf.shape[2:], eng.data_size) if eng.fsdp else None
+            return Split(1, None if d is None else d + 2)
+        if name in ("embed/tok", "embed/pos") and eng.vocab_parallel:
+            return Split(1)
+        if name == "head" and eng.vocab_parallel:
+            return Split(2)
+        return Split()
+
+    return tree_map(split, struct, tree_paths(struct))
+
+
+def _local_slice(x, sp: Split, d: int, s: int, n_data: int, n_stages: int):
+    """Device (·, d, s)'s slice of the stacked leaf ``x`` (a view)."""
+    for axis, i, n in ((sp.stage, s, n_stages), (sp.data, d, n_data)):
+        if axis is None:
+            continue
+        if x.shape[axis] % n:
+            raise ValueError(f"leaf dim {axis} of shape {tuple(x.shape)} "
+                             f"does not split into {n}")
+        w = x.shape[axis] // n
+        x = x.narrow(axis, i * w, w)
+    return x
+
+
+def _grid(layout, fn):
+    """``fn(p, d, s)`` over the layout, as nested lists [p][d][s]."""
+    n_pod, n_data, n_st = layout.devices.shape
+    return [[[fn(p, d, s) for s in range(n_st)] for d in range(n_data)]
+            for p in range(n_pod)]
+
+
+def place_trial_params(cfg: ArchConfig, eng: EngineConfig, params, layout):
+    """The trial-stacked tree split over a device layout: nested lists
+    ``[p][d][s]`` of device ``(p, d, s)``'s own tree (its leaves the local
+    shards of :func:`param_splits`, each a fresh contiguous tensor on that
+    device, so replicas never alias). ``params`` is left as it was."""
+    check_layout(eng, layout)
+    splits = param_splits(cfg, eng)
+
+    def local(p, d, s):
+        dev = layout.device(p, d, s)
+
+        def one(sp, x):
+            x = _local_slice(x, sp, d, s, eng.data_size, eng.n_stages)
+            return torch.empty(x.shape, dtype=x.dtype, device=dev).copy_(x)
+
+        return tree_map(one, splits, params)
+
+    with torch.no_grad():
+        return _grid(layout, local)
+
+
+def gather_trial_params(cfg: ArchConfig, eng: EngineConfig, placed, layout,
+                        device=None):
+    """The inverse of :func:`place_trial_params`, bit for bit: the
+    trial-stacked tree on ``device`` (default the layout's root; ``meta``
+    gives shapes and dtypes only), from pod 0's shards. Also gathers any
+    tree of the same placement, such as the optimizer's moments."""
+    dev = layout.root if device is None else torch.device(device)
+    n_data, n_st = eng.data_size, eng.n_stages
+    shards = [placed[0][d][s] for d in range(n_data) for s in range(n_st)]
+
+    def one(sp, *ls):
+        def at(d, s):
+            return ls[d * n_st + s]
+
+        def column(s):  # stage s's shard, its data rows joined
+            if sp.data is None:
+                return at(0, s).to(dev)
+            return torch.cat([at(d, s).to(dev) for d in range(n_data)],
+                             dim=sp.data)
+
+        if sp.stage is None:
+            return at(0, 0).to(dev, copy=True)
+        return torch.cat([column(s) for s in range(n_st)], dim=sp.stage)
+
+    with torch.no_grad():
+        return tree_map(one, param_splits(cfg, eng), *shards)
+
+
+def scatter_trial_params_(cfg: ArchConfig, eng: EngineConfig, placed, tree,
+                          layout):
+    """Copy a trial-stacked tree (any device) into every shard of
+    ``placed``, in place (a checkpoint's restore); returns ``placed``."""
+    splits = param_splits(cfg, eng)
+
+    def fill(p, d, s):
+        tree_map(lambda sp, full, loc: loc.copy_(_local_slice(
+            full, sp, d, s, eng.data_size, eng.n_stages)),
+            splits, tree, placed[p][d][s])
+
+    with torch.no_grad():
+        _grid(layout, fill)
+    return placed
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +543,7 @@ def _train_loss(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
 
 
 def pipeline_train_loss(cfg: ArchConfig, opts: ModelOptions,
-                        eng: EngineConfig, params, batch):
+                        eng: EngineConfig, params, batch, layout=None):
     """Runs the multi-trial pipelined forward; returns per-trial (loss, aux)
     (K,) tensors (aux: the MoE load-balance term, summed over the real
     layers of every stage, the mean over data shards, averaged over the M
@@ -383,18 +556,32 @@ def pipeline_train_loss(cfg: ArchConfig, opts: ModelOptions,
     :func:`_train_loss`). Each tick ``t`` advances stage
     ``s`` on slot ``t - s`` (trial ``slot % K``, microbatch ``slot // K``);
     bubble pairs are skipped. Differentiable w.r.t. ``params``.
+
+    With ``layout``, ``params`` is the placed tree of
+    :func:`place_trial_params` and the (loss, aux) come back as the means
+    over the replicas, on the layout's root device.
     """
+    if layout is not None:
+        local = _grid(layout, lambda p, d, s: unstack_trials(params[p][d][s]))
+        losses, auxes = _placed_train_loss(cfg, opts, eng, layout, local,
+                                           _train_batch(batch))
+        return _replica_mean(layout, losses), _replica_mean(layout, auxes)
     batch = _train_batch(batch, params["embed"]["tok"].device)
     return _train_loss(cfg, opts, eng, unstack_trials(params), batch)
 
 
-def _train_batch(batch, device):
+def _train_batch(batch, device=None):
     """tokens / labels and any frontend_embeds / mrope_pos (tensors or
-    numpy) as tensors on ``device``."""
-    return {n: (batch[n] if torch.is_tensor(batch[n])
-                else torch.from_numpy(np.ascontiguousarray(batch[n])))
-            .to(device) for n in ("tokens", "labels", "frontend_embeds",
-                                  "mrope_pos") if n in batch}
+    numpy) as tensors on ``device`` (None: tensors stay where they are,
+    numpy arrays come to the CPU)."""
+    out = {}
+    for n in ("tokens", "labels", "frontend_embeds", "mrope_pos"):
+        if n in batch:
+            v = batch[n]
+            v = v if torch.is_tensor(v) else torch.from_numpy(
+                np.ascontiguousarray(v))
+            out[n] = v if device is None else v.to(device)
+    return out
 
 
 def _grad_leaves(params, grads):
@@ -423,8 +610,261 @@ def reduce_grads(cfg: ArchConfig, eng: EngineConfig, grads):
     return grads, torch.sqrt(sq)
 
 
+# ---------------------------------------------------------------------------
+# Training on a device layout: every (stage, replica) unit on its device
+# ---------------------------------------------------------------------------
+
+
+def _vp_embed_part(cfg: ArchConfig, embed_local, tokens, positions, s_idx,
+                   compute_dtype):
+    """Stage ``s_idx``'s share of the vocab-parallel embedding (the
+    reference's masked local gather): its vocab slice's rows, zero for a
+    token another stage owns; learned positions split the same way."""
+    def part(tab, ids):
+        n = tab.shape[0]
+        local = ids.long() - s_idx * n
+        rows = tab[local.clamp(0, n - 1)]
+        return torch.where(((local >= 0) & (local < n))[..., None], rows,
+                           torch.zeros_like(rows)).to(compute_dtype)
+
+    x = part(embed_local["tok"], tokens)
+    if cfg.rope == "learned" and positions is not None:
+        x = x + part(embed_local["pos"], positions)
+    return x
+
+
+def _vp_loss_placed(cfg: ArchConfig, stage_params, y, labels, devices):
+    """Vocab-parallel CE (mean over tokens) with each stage's vocab slice
+    on its own device: ``stage_params[s]`` holds stage s's final_norm and
+    head slice (D, Vp/S), ``labels[s]`` the labels on ``devices[s]``. y
+    (on the last stage) goes to every stage; the per-stage maxima, sums of
+    exp and owned label logits come back to the last stage and add up
+    there (the reference's all_gather / psums)."""
+    last = devices[-1]
+    logits = []
+    for s, (p, dev) in enumerate(zip(stage_params, devices)):
+        x = lm.final_norm_apply(cfg, p["final_norm"], y.to(dev))
+        lg = (x @ p["head"]).float()  # (b, seq, Vp / S)
+        v_s = lg.shape[-1]
+        gid = s * v_s + torch.arange(v_s, device=dev)
+        logits.append(lg.masked_fill(gid >= cfg.vocab_size, -1e30))
+    lmax = torch.stack([lg.detach().amax(dim=-1).to(last)
+                        for lg in logits]).amax(dim=0)  # (b, seq)
+    sumexp, ll = 0, 0
+    for s, (lg, lab) in enumerate(zip(logits, labels)):
+        sumexp = sumexp + torch.exp(
+            lg - lmax.to(lg.device)[..., None]).sum(dim=-1).to(last)
+        v_s = lg.shape[-1]
+        local = lab.long() - s * v_s
+        own = torch.gather(lg, -1, local.clamp(0, v_s - 1)[..., None])[..., 0]
+        ll = ll + torch.where((local >= 0) & (local < v_s), own,
+                              torch.zeros_like(own)).to(last)
+    return (torch.log(sumexp) + lmax - ll).mean()
+
+
+def _replica_rows(eng: EngineConfig, batch, p: int, d: int, device):
+    """Replica (p, d)'s rows of the batch on ``device``: block ``p·D + d``
+    of ``microbatch`` rows (pod-major, as the reference shards the batch
+    over ``("pod", "data")``), or every row when the batch is
+    replicated."""
+    lo = 0 if eng.batch_replicated else (p * eng.data_size + d) \
+        * eng.microbatch
+    return {n: v.narrow(3 if n == "mrope_pos" else 2, lo, eng.microbatch)
+            .to(device, non_blocking=True) for n, v in batch.items()}
+
+
+def _placed_train_loss(cfg: ArchConfig, opts: ModelOptions,
+                       eng: EngineConfig, layout, local, batch):
+    """The tick loop on a device layout. ``local[p][d][s]``: device (p, d,
+    s)'s per-trial dicts (:func:`unstack_trials` of its shard tree);
+    batch: the global tensors of :func:`_train_loss`. Unit (s, slot) of
+    replica (p, d) runs on device (p, d, s) on that replica's rows; each
+    device's MoE rows route as one shard. Returns (losses, auxes): lists
+    over the replicas in (p, d) order of (K,) tensors on each replica's
+    last-stage device, as :func:`_train_loss` returns them for one
+    replica's rows."""
+    S, K, M = eng.n_stages, eng.n_trials, eng.n_microbatches
+    n_pod, n_data = eng.pod_size, eng.data_size
+    l_s = plan_stages(cfg, S).layers_per_stage
+    dev = layout.device
+    seq = batch["tokens"].shape[-1]
+    rows = {(p, d, s): _replica_rows(eng, batch, p, d, dev(p, d, s))
+            for p in range(n_pod) for d in range(n_data) for s in range(S)}
+    pos = {(p, d, s): torch.arange(seq, device=dev(p, d, s)).expand(
+        eng.microbatch, seq) for p, d, s in rows}
+    splits = param_splits(cfg, eng)["layers"] if eng.fsdp else None
+
+    def layer_gather(p, d, s, k):
+        """FSDP: local layer i's leaves joined over the data rows on the
+        unit's device, inside its remat boundary (autograd of the join is
+        the reduce-scatter onto each row's shard)."""
+        if splits is None:
+            return None
+        here = dev(p, d, s)
+
+        def gather(i, p_i):
+            shards = [local[p][r][s][k]["layers"][i] for r in range(n_data)]
+            return tree_map(
+                lambda sp, *ls: ls[d] if sp.data is None else torch.cat(
+                    [x.to(here) for x in ls], dim=sp.data - 2),
+                splits, *shards)
+
+        return gather
+
+    def embed(p, d, k, m):
+        if not eng.vocab_parallel:
+            return plain_embed(cfg, eng, local[p][d][0][k]["embed"],
+                               rows[p, d, 0]["tokens"][k, m], pos[p, d, 0],
+                               opts.compute_dtype)
+        first = dev(p, d, 0)
+        parts = [_vp_embed_part(cfg, local[p][d][s][k]["embed"],
+                                rows[p, d, s]["tokens"][k, m], pos[p, d, s],
+                                s, opts.compute_dtype).to(first)
+                 for s in range(S)]
+        return sum(parts[1:], parts[0])
+
+    def loss(p, d, k, m, y):
+        if not eng.vocab_parallel:
+            q = local[p][d][S - 1][k]
+            return plain_loss(cfg, eng, q["final_norm"], q["head"], y,
+                              rows[p, d, S - 1]["labels"][k, m])
+        return _vp_loss_placed(
+            cfg, [local[p][d][s][k] for s in range(S)], y,
+            [rows[p, d, s]["labels"][k, m] for s in range(S)],
+            [dev(p, d, s) for s in range(S)])
+
+    def unit(x, p, d, s, k, m):
+        here = rows[p, d, s]
+        if s == 0:
+            x = embed(p, d, k, m)
+            if "frontend_embeds" in here:
+                x = lm.replace_frontend_rows(x, here["frontend_embeds"][k, m])
+        lo = s * l_s
+        q = local[p][d][s][k]
+        x, _, aux = lm.stack_apply(
+            cfg, opts, q["layers"], x,
+            pos=here["mrope_pos"][k, m] if "mrope_pos" in here
+            else pos[p, d, s], mode="train", shared_params=q.get("shared"),
+            layer_mask=[lo + i < cfg.n_layers for i in range(l_s)],
+            layer_offset=lo, n_shards=1,
+            layer_param_fn=layer_gather(p, d, s, k))
+        if s == S - 1:
+            return loss(p, d, k, m, x), aux
+        return x, aux
+
+    remat = opts.remat and torch.is_grad_enabled()
+    reps = [(p, d) for p in range(n_pod) for d in range(n_data)]
+    losses = {r: [[] for _ in range(K)] for r in reps}
+    auxes = {r: [[] for _ in range(K)] for r in reps}
+    acts = {}  # (p, d, s) -> stage s's output of the previous tick
+    for t in range(eng.n_ticks):
+        nxt = {}
+        for s in range(S):
+            slot = t - s
+            if not 0 <= slot < eng.n_slots:
+                continue  # fill/drain bubble: masked in the reference
+            k, m = slot % K, slot // K
+            for p, d in reps:
+                x = (acts[p, d, s - 1].to(dev(p, d, s), non_blocking=True)
+                     if s else None)
+                out, aux = (checkpoint(unit, x, p, d, s, k, m,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
+                            if remat else unit(x, p, d, s, k, m))
+                auxes[p, d][k].append(aux)
+                if s == S - 1:
+                    losses[p, d][k].append(out)
+                else:
+                    nxt[p, d, s] = out
+        acts = nxt
+    out_l, out_a = [], []
+    for p, d in reps:
+        last = dev(p, d, S - 1)
+        out_l.append(torch.stack([sum(ls) for ls in losses[p, d]]) / M)
+        out_a.append(torch.stack([sum(a.to(last) for a in ax)
+                                  for ax in auxes[p, d]]) / M)
+    return out_l, out_a
+
+
+def _replica_mean(layout, vecs):
+    """The mean over replicas of (K,) tensors, on the layout's root (the
+    reference's pmean over the data and pod axes)."""
+    return torch.stack([v.to(layout.root) for v in vecs]).mean(dim=0)
+
+
+def reduce_placed_grads(cfg: ArchConfig, eng: EngineConfig, layout, grads):
+    """The reference's ``reduce_grads`` on a device layout. Every shard
+    held by several devices (a replicated leaf, a layer shard of several
+    data rows without FSDP, every shard over the pod axis) gets the sum of
+    its replicas' gradients, in place on each; a leaf split over an axis
+    already carries that axis' sum (autograd of the FSDP join and of the
+    vocab-parallel partials). The per-trial norm (K,) weights each
+    distinct shard's square-sum once, gathered on the layout's root: the
+    true norm (the reference's is S times it, ROADMAP). Returns (grads,
+    grad_norm)."""
+    specs = tree_leaves(param_splits(cfg, eng))
+    flat = _grid(layout, lambda p, d, s: tree_leaves(grads[p][d][s]))
+    n_pod, n_data, n_st = layout.devices.shape
+    sq = torch.zeros((eng.n_trials,), dtype=torch.float32,
+                     device=layout.root)
+    for i, sp in enumerate(specs):
+        groups = {}
+        for p in range(n_pod):
+            for d in range(n_data):
+                for s in range(n_st):
+                    key = (None if sp.data is None else d,
+                           None if sp.stage is None else s)
+                    groups.setdefault(key, []).append(flat[p][d][s][i])
+        for g0, *rest in groups.values():
+            for g in rest:
+                g0.add_(g.to(g0.device))
+            for g in rest:
+                g.copy_(g0)
+            sq += torch.linalg.vector_norm(
+                g0.reshape(eng.n_trials, -1).float(), dim=1).square() \
+                .to(layout.root)
+    return grads, torch.sqrt(sq)
+
+
+def _make_placed_train_step(cfg: ArchConfig, opts: ModelOptions,
+                            eng: EngineConfig, optimizer, layout) -> Callable:
+    """:func:`make_train_step` on a device layout (see there)."""
+    check_layout(eng, layout)
+    bufs = {}
+
+    def step_fn(params, opt_state, batch, hparams, step):
+        if "grads" not in bufs:
+            bufs["grads"] = tree_map(torch.zeros_like, params)
+        grads = bufs["grads"]
+        for g in tree_leaves(grads):
+            g.zero_()
+        batch = _train_batch(batch)
+        local = _grid(layout, lambda p, d, s: _grad_leaves(
+            params[p][d][s], grads[p][d][s]))
+        losses, auxes = _placed_train_loss(cfg, opts, eng, layout, local,
+                                           batch)
+        # the objective over the dp replicas: the sum of their local
+        # objectives divided by the dp degree (the reference's)
+        total = 0
+        for loss_vec, aux_vec in zip(losses, auxes):
+            local_total = loss_vec.sum()
+            if cfg.moe is not None:
+                local_total = local_total \
+                    + cfg.moe.load_balance_coef * aux_vec.sum()
+            total = total + local_total.to(layout.root)
+        (total / eng.dp_degree).backward()
+        grads, gnorm = reduce_placed_grads(cfg, eng, layout, grads)
+        params, opt_state = optimizer.update(params, grads, opt_state,
+                                             hparams, step, grad_norm=gnorm)
+        loss = _replica_mean(layout, [v.detach() for v in losses])
+        return params, opt_state, {"loss": loss.cpu().numpy(),
+                                   "grad_norm": gnorm.cpu().numpy()}
+
+    return step_fn
+
+
 def make_train_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
-                    optimizer) -> Callable:
+                    optimizer, layout=None) -> Callable:
     """The multi-trial pipelined train step.
 
     Returns fn(params, opt_state, batch, hparams, step) -> (params,
@@ -438,7 +878,21 @@ def make_train_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
     hyperparameters (Hydra's model-selection axis); metrics {"loss",
     "grad_norm"} are (K,) numpy arrays. The gradient buffer (one per
     parameter leaf) is allocated at the first call and reused.
+
+    With ``layout`` (a ``launch.mesh.DeviceLayout`` of the engine's (pod,
+    data, model) sizes) the step takes and updates the placed tree of
+    :func:`place_trial_params` and an optimizer state made from it: unit
+    (s, slot) of replica (p, d) runs on device (p, d, s) over that
+    replica's rows, FSDP (``eng.fsdp``) gathers each layer on the unit's
+    device, a replicated batch (``eng.batch_replicated``) gives every
+    replica the whole microbatch, the objective is the replicas' sum
+    divided by ``eng.dp_degree``, replicated leaves get their gradients
+    summed over replicas (:func:`reduce_placed_grads`), and
+    ``metrics["loss"]`` is the mean over replicas, as the reference's
+    ``make_train_step`` on a mesh of those sizes.
     """
+    if layout is not None:
+        return _make_placed_train_step(cfg, opts, eng, optimizer, layout)
     check_runnable(eng)
     bufs = {}
 

@@ -7,6 +7,10 @@ flags, so an edited source or header rebuilds and an unchanged one is
 reused. :func:`start` launches ``nvcc``
 without waiting, so a caller can build every kernel at once
 (``chip_smoke.py`` does); :func:`build` is start-then-finish for one.
+:func:`launch_device` is the wrappers' device check: a kernel launches on
+the one device that holds all its tensor inputs, under that device's
+context (``cudaFuncSetAttribute`` and the launch both go to the current
+device), and on its current stream.
 """
 from __future__ import annotations
 
@@ -26,6 +30,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 class KernelLaunchError(RuntimeError):
     """A kernel's C entry returned a CUDA error (launch refused, bad
     configuration, or a fault from earlier work on the stream)."""
+
+
+def launch_device(kernel: str, **tensors):
+    """The one device of a kernel's tensor inputs (by name); raises if
+    they are split across devices or if that device is not a CUDA one.
+    Launch under ``torch.cuda.device(it)``."""
+    devices = {n: t.device for n, t in tensors.items()}
+    if len(set(devices.values())) > 1:
+        raise ValueError(f"{kernel}: inputs split across devices ("
+                         + ", ".join(f"{n} on {d}" for n, d in devices.items())
+                         + ")")
+    dev = next(iter(devices.values()))
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel} needs CUDA tensors, got {dev}")
+    return dev
 
 
 def library_path(source: Path) -> Path:

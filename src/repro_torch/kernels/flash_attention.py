@@ -17,10 +17,10 @@ reference's transposes to (B·H, S, hd) are not needed, and GQA is indexing
 
 Build and binding as ``kernels/paged_attention.py``: ``kernels.build``
 compiles the source at first use into ``build/repro_torch/`` and
-``ctypes`` loads its C entry; the wrapper checks devices, dtypes, shapes
-and contiguity, allocates the output with ``torch.empty``, launches on
-``torch.cuda.current_stream()`` and raises if the launch returned a CUDA
-error.
+``ctypes`` loads its C entry; the wrapper checks devices (every input on
+one CUDA device), dtypes, shapes and contiguity, allocates the output with
+``torch.empty``, launches under that device's context on its current
+stream and raises if the launch returned a CUDA error.
 
 :func:`flash_attention_plain` is direct softmax in fp32 with the output in
 q's dtype (``ref.flash_attention_ref``'s math): the CPU lowering the tests
@@ -72,12 +72,8 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
     ``kv_offset`` the absolute position of q[0] minus that of k[0].
     Returns (b, sq, hq, hd) in q's dtype."""
     global launches
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_kernel needs CUDA tensors, got "
-                         f"{q.device}")
+    dev = kbuild.launch_device("flash_attention_kernel", q=q, k=k, v=v)
     for name, t in (("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
             raise ValueError(f"{name} dtype {t.dtype} must match q's "
                              f"{q.dtype}")
@@ -103,11 +99,12 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
         return out
     if sk == 0:
         return out.zero_()
-    rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  b, sq, sk, hq, hkv, hd, int(causal), int(window),
-                  int(kv_offset), int(q.dtype == torch.bfloat16),
-                  1.0 / math.sqrt(hd),
-                  torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(dev):
+        rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), b, sq, sk, hq, hkv, hd, int(causal),
+                      int(window), int(kv_offset),
+                      int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(hd),
+                      torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise kbuild.KernelLaunchError(
             f"flash_attention launch failed: CUDA error {rc}")

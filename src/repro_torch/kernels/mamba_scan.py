@@ -13,8 +13,9 @@ Build and binding as ``kernels/flash_attention.py``: ``kernels.build``
 compiles the source at first use into ``build/repro_torch/`` and
 ``ctypes`` loads its C entry; the wrapper checks devices, dtypes, shapes,
 strides and alignment, allocates the outputs with ``torch.empty``,
-launches on ``torch.cuda.current_stream()`` and raises if the launch
-returned a CUDA error. ``cmat`` may be a strided view (the model passes a
+launches under the inputs' device on its current stream
+(``kernels.build.launch_device``) and raises if the launch returned a
+CUDA error. ``cmat`` may be a strided view (the model passes a
 split of ``x_proj``'s output): the kernel reads it through its strides.
 
 :func:`mamba_scan_plain` is the sequential fp32 loop of
@@ -61,12 +62,8 @@ def mamba_scan_kernel(da, dbx, cmat, h0):
     bfloat16); h0 (b, di, n) float32 contiguous; n in ``D_STATES``.
     Returns (y (b, s, di) in da's dtype, h (b, di, n) float32)."""
     global launches
-    if da.device.type != "cuda":
-        raise ValueError(f"mamba_scan_kernel needs CUDA tensors, got "
-                         f"{da.device}")
-    for name, t in (("dbx", dbx), ("cmat", cmat), ("h0", h0)):
-        if t.device != da.device:
-            raise ValueError(f"{name} on {t.device}, da on {da.device}")
+    dev = kbuild.launch_device("mamba_scan_kernel", da=da, dbx=dbx,
+                               cmat=cmat, h0=h0)
     if da.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported dtype {da.dtype}")
     if dbx.dtype != da.dtype or cmat.dtype != da.dtype:
@@ -95,11 +92,12 @@ def mamba_scan_kernel(da, dbx, cmat, h0):
     if s == 0 or b * di == 0:
         return y, h0.clone()
     h = torch.empty_like(h0)
-    rc = _entry()(da.data_ptr(), dbx.data_ptr(), cmat.data_ptr(),
-                  h0.data_ptr(), y.data_ptr(), h.data_ptr(), b, s, di, n,
-                  cmat.stride(0), cmat.stride(1),
-                  int(da.dtype == torch.bfloat16),
-                  torch.cuda.current_stream(da.device).cuda_stream)
+    with torch.cuda.device(dev):
+        rc = _entry()(da.data_ptr(), dbx.data_ptr(), cmat.data_ptr(),
+                      h0.data_ptr(), y.data_ptr(), h.data_ptr(), b, s, di, n,
+                      cmat.stride(0), cmat.stride(1),
+                      int(da.dtype == torch.bfloat16),
+                      torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise kbuild.KernelLaunchError(
             f"mamba_scan launch failed: CUDA error {rc}")

@@ -16,9 +16,14 @@ from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import paged_attention as pa
 
 
-def _route(t, plain, kernel):
+def _route(t, plain, kernel, *others):
     """``plain`` for a CPU tensor, ``kernel`` for a CUDA one; raises for a
-    meta tensor."""
+    meta tensor, and when ``others`` (the op's other tensor inputs) lie on
+    another device than ``t``."""
+    split = [o.device for o in others if o.device != t.device]
+    if split:
+        raise ValueError(f"{kernel.__name__}: inputs split across devices "
+                         f"({t.device} and {split[0]})")
     if t.device.type == "meta":
         raise ValueError(
             f"{kernel.__name__} got a meta tensor: a CUDA kernel needs "
@@ -46,7 +51,8 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, kv_offset, block_q, block_k):
         ctx.save_for_backward(q, k, v)
         ctx.args = (causal, window, kv_offset, block_q, block_k)
-        fn = _route(q, fa.flash_attention_plain, fa.flash_attention_kernel)
+        fn = _route(q, fa.flash_attention_plain, fa.flash_attention_kernel,
+                    k, v)
         return fn(q, k, v, causal=causal, window=window, kv_offset=kv_offset)
 
     @staticmethod
@@ -90,7 +96,8 @@ def paged_attention(q, k_pool, v_pool, block_tables, kv_offset, kv_len, *,
     per-row cache depth / live length; ``q_lens (b,)`` optional per-row
     real query counts. Returns (b, sq, hq, hd). See
     ``kernels/paged_attention.py`` for the masking contract."""
-    fn = _route(q, pa.paged_attention_plain, pa.paged_attention_kernel)
+    fn = _route(q, pa.paged_attention_plain, pa.paged_attention_kernel,
+                k_pool, v_pool, block_tables)
     return fn(q, k_pool, v_pool, block_tables, kv_offset, kv_len,
               causal=causal, window=window, q_lens=q_lens)
 
@@ -110,7 +117,8 @@ class _MambaScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, da, dbx, cmat, h0):
         ctx.save_for_backward(da, dbx, cmat, h0)
-        fn = _route(da, ms.mamba_scan_plain, ms.mamba_scan_kernel)
+        fn = _route(da, ms.mamba_scan_plain, ms.mamba_scan_kernel, dbx,
+                    cmat, h0)
         return fn(da, dbx, cmat, h0)
 
     @staticmethod

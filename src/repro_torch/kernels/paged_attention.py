@@ -29,8 +29,9 @@ Build and binding: at first use ``kernels.build`` compiles the source with
 (named by a hash of the sources and flags, so an edited source or header
 rebuilds), and ``ctypes`` loads its plain C entry. The wrapper checks
 devices, dtypes, shapes and contiguity, allocates the output and the
-partials with ``torch.empty``, launches on ``torch.cuda.current_stream()``
-and raises if a launch returned a CUDA error.
+partials with ``torch.empty``, launches under the inputs' device on its
+current stream (``kernels.build.launch_device``) and raises if a launch
+returned a CUDA error.
 
 :func:`paged_attention_plain` is gather-then-attend in fp32, mirroring
 ``repro.kernels.ref.paged_attention_ref``: the CPU lowering the tests hold
@@ -135,13 +136,8 @@ def paged_attention_kernel(q, k_pool, v_pool, block_tables, kv_offset,
     block_tables (b, n_tbl) physical ids (-1 unallocated); kv_offset /
     kv_len / q_lens (b,). Returns (b, sq, hq, hd) in q's dtype."""
     global launches
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention_kernel needs CUDA tensors, got "
-                         f"{q.device}")
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables)):
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    dev = kbuild.launch_device("paged_attention_kernel", q=q, k_pool=k_pool,
+                               v_pool=v_pool, block_tables=block_tables)
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise ValueError(f"pool dtypes {k_pool.dtype}/{v_pool.dtype} must "
                          f"match q's {q.dtype}")
@@ -183,16 +179,17 @@ def paged_attention_kernel(q, k_pool, v_pool, block_tables, kv_offset,
                                dtype=torch.float32, device=q.device)
         part_ml = torch.empty((b, hkv, rows, n_splits, 2),
                               dtype=torch.float32, device=q.device)
-    rc = _entry()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                  tables.data_ptr(), off.data_ptr(), ln.data_ptr(),
-                  ql.data_ptr(), out.data_ptr(),
-                  None if part_acc is None else part_acc.data_ptr(),
-                  None if part_ml is None else part_ml.data_ptr(),
-                  b, sq, hq, hkv, hd, bs, n_tbl, int(causal), int(window),
-                  int(q.dtype == torch.bfloat16),
-                  int(variant == "append_mma"), pages, n_splits,
-                  1.0 / math.sqrt(hd),
-                  torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(dev):
+        rc = _entry()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                      tables.data_ptr(), off.data_ptr(), ln.data_ptr(),
+                      ql.data_ptr(), out.data_ptr(),
+                      None if part_acc is None else part_acc.data_ptr(),
+                      None if part_ml is None else part_ml.data_ptr(),
+                      b, sq, hq, hkv, hd, bs, n_tbl, int(causal), int(window),
+                      int(q.dtype == torch.bfloat16),
+                      int(variant == "append_mma"), pages, n_splits,
+                      1.0 / math.sqrt(hd),
+                      torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise kbuild.KernelLaunchError(
             f"paged_attention launch failed ({variant}): CUDA error {rc}")

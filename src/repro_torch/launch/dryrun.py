@@ -310,8 +310,8 @@ def run_cell(cfg: ArchConfig, shape: ShapeConfig, mesh,
     if name != CARD_LAYOUT_NAME:
         row["per_device"] = (
             f"not measured: the per-device costs of a {n_devices(mesh)}-"
-            f"device mesh, which the port (one process, one card) cannot "
-            f"measure; see the card layout")
+            f"device mesh, which one card cannot measure; see the card "
+            f"layout")
         return row
     costs = cell_costs(cfg, shape, eng, model_options(overrides), counted)
     cap, source = card_bytes()

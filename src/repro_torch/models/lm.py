@@ -305,7 +305,7 @@ def stack_apply(cfg: ArchConfig, opts: ModelOptions, layer_params, x, *,
                 pos, mode: str = "train", cache=None, shared_params=None,
                 layer_mask=None, layer_offset: int = 0, kv_offset=None,
                 window: int = 0, block_tables=None, write_mask=None,
-                q_lens=None, n_shards: int = 1):
+                q_lens=None, n_shards: int = 1, layer_param_fn=None):
     """Apply a contiguous slice of the layer stack.
 
     layer_params: a list of per-layer parameter dicts (views into the
@@ -321,7 +321,10 @@ def stack_apply(cfg: ArchConfig, opts: ModelOptions, layer_params, x, *,
     (:func:`shared_site_flags` at ``layer_offset``, the slice's first
     global layer) the shared attention block runs on that site's slot of
     ``cache["shared"]``. ``n_shards``: the rows' data shards, each routed
-    on its own by the MoE blocks.
+    on its own by the MoE blocks. ``layer_param_fn(i, p_i)`` (the FSDP
+    gather of the placed train step, the reference's ``layer_param_fn``)
+    turns local layer i's parameters into the ones the block runs on,
+    inside the layer's remat boundary.
     In train mode with ``opts.remat`` each layer (with its shared block)
     is a ``torch.utils.checkpoint`` — the reference's ``jax.checkpoint``
     of the scan body: backward keeps each layer's input and recomputes
@@ -346,7 +349,9 @@ def stack_apply(cfg: ArchConfig, opts: ModelOptions, layer_params, x, *,
         sc_i = (layer_slice(sh_cache, slots[i])
                 if use_sh and sh_cache is not None else None)
 
-        def run(x, p_i=p_i, c_i=c_i, use_sh=use_sh, sc_i=sc_i):
+        def run(x, i=i, p_i=p_i, c_i=c_i, use_sh=use_sh, sc_i=sc_i):
+            if layer_param_fn is not None:
+                p_i = layer_param_fn(i, p_i)
             y, _, aux_i = block(cfg, opts, p_i, x, pos=pos, cache=c_i,
                                 kv_offset=kv_offset, mode=mode,
                                 window=window, block_tables=block_tables,

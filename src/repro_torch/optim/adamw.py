@@ -33,6 +33,20 @@ def _bcast(vec, leaf):
     return vec.reshape(vec.shape + (1,) * (leaf.ndim - 1))
 
 
+def _on_device(*vecs):
+    """fn(device) -> the (K,) ``vecs`` on ``device``, copied once per
+    device: a placed tree's leaves lie on several devices, and every
+    replica of a leaf must see the same values."""
+    cache = {}
+
+    def at(device):
+        if device not in cache:
+            cache[device] = tuple(v.to(device) for v in vecs)
+        return cache[device]
+
+    return at
+
+
 # ---------------------------------------------------------------------------
 # LR schedules: step (int) -> multiplier (float)
 # ---------------------------------------------------------------------------
@@ -89,7 +103,9 @@ class AdamW:
         """One AdamW step, in place. hparams: {"lr": (K,), optional "wd":
         (K,)} (tensors, arrays or lists); ``step`` the schedule's step;
         ``grad_norm`` the per-trial global gradient norm (K,), for
-        clip-by-global-norm. Returns (params, state), the same objects."""
+        clip-by-global-norm. Each leaf's update uses these (K,) vectors on
+        the leaf's own device (a placed tree spans several). Returns
+        (params, state), the same objects."""
         leaves = tree_leaves(params)
         dev = leaves[0].device
         as_vec = lambda x: torch.as_tensor(x, dtype=torch.float32,
@@ -107,9 +123,11 @@ class AdamW:
                                 max=1.0)
         else:
             scale = torch.ones_like(lr)
+        vecs = _on_device(lr, wd, scale)
         for p, g, m, v in zip(leaves, tree_leaves(grads),
                               tree_leaves(state["m"]),
                               tree_leaves(state["v"])):
+            lr, wd, scale = vecs(p.device)
             g = g.float().mul_(_bcast(scale, g))  # grads are scratch
             m.mul_(self.b1).add_(g, alpha=1 - self.b1)
             v.mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
@@ -155,7 +173,9 @@ class SGD:
         state["count"] += 1
         moms = (tree_leaves(state["mom"]) if self.momentum != 0.0
                 else [None] * len(leaves))
+        lr_at = _on_device(lr)
         for p, g, mom in zip(leaves, tree_leaves(grads), moms):
+            lr, = lr_at(p.device)
             step_dir = g.float()
             if mom is not None:
                 mom.mul_(self.momentum).add_(step_dir)

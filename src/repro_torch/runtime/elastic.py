@@ -10,9 +10,9 @@ throughput: the engines keep their microbatch size and count, so the
 global batch shrinks with the data axis, and the gradients after it are
 those of a smaller batch (``core/scheduler.py::replan_after_failure``).
 
-The port runs a layout as structure inside one process, so
 :func:`rebuild_mesh` returns the logical axis sizes the reference's
-``Mesh`` would have, not a mesh of devices.
+``Mesh`` would have, not a device layout (``launch.mesh.DeviceLayout``):
+rebuilding a layout from the surviving devices is not ported yet.
 """
 from __future__ import annotations
 

@@ -11,6 +11,12 @@ Two differences from the reference, both from PyTorch's in-place state:
   initial state no longer exists: a failure before the first checkpoint
   re-raises unless no step has run yet (the reference would restart from
   its immutable initial state).
+
+A state that is not one tree on one device (a gang placed on a device
+layout) is checkpointed through a :class:`StateCodec`: the checkpoint
+holds the gathered one-device tree, as the reference saves global arrays,
+so a checkpoint written under a layout restores on one device and the
+other way round.
 """
 from __future__ import annotations
 
@@ -32,6 +38,17 @@ class LoopConfig:
     ckpt_dir: Optional[str] = None
     max_restarts: int = 3
     keep_checkpoints: int = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class StateCodec:
+    """How a placed state is checkpointed: ``gather(state, device)`` gives
+    its one-device tree on ``device`` (``meta``: a restore template of
+    shapes and dtypes), ``scatter(tree, state)`` copies a restored tree
+    into ``state`` in place and returns it."""
+
+    gather: Callable[[Any, Any], Any]
+    scatter: Callable[[Any, Any], Any]
 
 
 @dataclasses.dataclass
@@ -76,8 +93,8 @@ def is_device_fault(e: BaseException) -> bool:
 
 def run_with_restarts(step_fn: Callable[[Any, int], tuple],
                       init_state: Any, loop: LoopConfig,
-                      failure_injector: Optional[Callable[[int], None]] = None
-                      ) -> LoopReport:
+                      failure_injector: Optional[Callable[[int], None]] = None,
+                      codec: Optional[StateCodec] = None) -> LoopReport:
     """Run ``state, metrics = step_fn(state, step)`` for n_steps with
     checkpoint/restart.
 
@@ -85,8 +102,16 @@ def run_with_restarts(step_fn: Callable[[Any, int], tuple],
     checkpoint and continues, up to ``max_restarts``; device faults
     (:func:`is_device_fault`) re-raise at once. The state must be a
     checkpoint-restorable tree of tensors; a restore places each leaf on
-    its template's device.
+    its template's device. With ``codec`` the checkpoints hold
+    ``codec.gather(state, "cpu")`` and a restore scatters into the state.
     """
+    def restore(step, state):
+        if codec is None:
+            return ckpt_lib.restore(loop.ckpt_dir, step, state)
+        tree = ckpt_lib.restore(loop.ckpt_dir, step,
+                                codec.gather(state, "meta"))
+        return codec.scatter(tree, state)
+
     t0 = time.monotonic()
     saver = (ckpt_lib.AsyncCheckpointer(loop.ckpt_dir, loop.keep_checkpoints)
              if loop.ckpt_dir else None)
@@ -96,7 +121,7 @@ def run_with_restarts(step_fn: Callable[[Any, int], tuple],
     if loop.ckpt_dir:
         latest = ckpt_lib.latest_step(loop.ckpt_dir)
         if latest is not None:
-            state = ckpt_lib.restore(loop.ckpt_dir, latest, init_state)
+            state = restore(latest, init_state)
             start_step = latest
             resumed_from = latest
     restarts = 0
@@ -115,7 +140,9 @@ def run_with_restarts(step_fn: Callable[[Any, int], tuple],
                 at_ckpt = loop.ckpt_dir and (
                     step % loop.checkpoint_every == 0 or step == loop.n_steps)
                 if at_ckpt or (guard.requested and loop.ckpt_dir):
-                    saver.save(step, state, extra={"step": step})
+                    saver.save(step, state if codec is None
+                               else codec.gather(state, "cpu"),
+                               extra={"step": step})
                 if guard.requested:
                     break
             except Exception as e:
@@ -130,7 +157,7 @@ def run_with_restarts(step_fn: Callable[[Any, int], tuple],
                         raise  # in-place state cannot rewind to step 0
                     state, step = init_state, 0
                 else:
-                    state = ckpt_lib.restore(loop.ckpt_dir, latest, state)
+                    state = restore(latest, state)
                     step = latest
     if saver:
         saver.wait()

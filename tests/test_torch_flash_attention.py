@@ -271,3 +271,32 @@ def test_kernel_vs_plain_on_card(cuda_device, case):
                                      kv_offset=off)
     torch.cuda.synchronize()
     assert float((got.float() - want.float()).abs().max()) < TOL[dt]
+
+
+def test_wrappers_refuse_inputs_split_across_devices():
+    """Every input of a launch shares one device: the kernel's wrapper and
+    the op refuse a split (here a CPU q beside a meta k; on cards, q on
+    one card beside k on another)."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(9, 1, 8, 8, 2, 2, 16))
+    with pytest.raises(ValueError, match="split across devices"):
+        tfa.flash_attention_kernel(q, k.to("meta"), v)
+    with pytest.raises(ValueError, match="split across devices"):
+        tops.flash_attention(q, k, v.to("meta"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_kernel_launches_on_its_tensors_device(dt):
+    """A launch on cuda:1 while cuda:0 is current runs on cuda:1 (its
+    context, its stream) and agrees with the plain version there."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    dev = torch.device("cuda:1")
+    q, k, v = (torch.from_numpy(a).to(dev, TDT[dt])
+               for a in _qkv(10, 1, 256, 256, 32, 2, 128))
+    with torch.cuda.device(0):
+        got = tfa.flash_attention_kernel(q, k, v)
+        want = tfa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize(dev)
+    assert got.device == dev
+    assert float((got.float() - want.float()).abs().max()) < TOL[dt]

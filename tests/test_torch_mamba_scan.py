@@ -138,3 +138,14 @@ def test_kernel_vs_plain_on_card(cuda_device, case):
     torch.cuda.synchronize()
     assert float((y.float() - y2.float()).abs().max()) < TOL[dt]
     assert float((h - h2).abs().max()) < TOL[dt]
+
+
+def test_wrappers_refuse_inputs_split_across_devices():
+    """Every input of a launch shares one device: the kernel's wrapper and
+    the op refuse a split (a CPU da beside a meta C here)."""
+    da, dbx, c, h0 = (torch.from_numpy(np.asarray(a, np.float32))
+                      for a in _inputs(7, 1, 4, 8, 4))
+    with pytest.raises(ValueError, match="split across devices"):
+        tms.mamba_scan_kernel(da, dbx, c.to("meta"), h0)
+    with pytest.raises(ValueError, match="split across devices"):
+        tops.mamba_scan(da, dbx.to("meta"), c, h0)

@@ -312,3 +312,36 @@ def test_kernel_variants_vs_plain_on_card(cuda_device, case):
     torch.cuda.synchronize()
     assert tpa.variant_launches[variant] == before + 1
     assert float((got.float() - want.float()).abs().max()) < TOL[dt]
+
+
+def test_wrappers_refuse_inputs_split_across_devices():
+    """Every input of a launch shares one device: the kernel's wrapper and
+    the op refuse a split (here a CPU q beside a meta pool; on cards, q on
+    one card beside the pool on another)."""
+    q, kp, vp, tb, off, ln = _torch(
+        make_case(15, 2, 1, 4, 2, 16, 12, 4, 4, [9, 16]), "float32")
+    with pytest.raises(ValueError, match="split across devices"):
+        tpa.paged_attention_kernel(q, kp.to("meta"), vp, tb, off, ln)
+    with pytest.raises(ValueError, match="split across devices"):
+        ops.paged_attention(q, kp, vp, tb.to("meta"), off, ln)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,dt", [(1, "bfloat16"), (64, "bfloat16"),
+                                   (1, "float32")])
+def test_kernel_launches_on_its_tensors_device(sq, dt):
+    """A launch on cuda:1 while cuda:0 is current runs on cuda:1 (its
+    context — the kernel sets its shared-memory attribute there — and its
+    stream), for the split-KV variant and the tensor-core tile, and agrees
+    with the plain version there."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    dev = torch.device("cuda:1")
+    arrs = make_case(16, 2, sq, 32, 2, 128, 200, 16, 64, [700, 300 + sq])
+    targs = [t.to(dev) for t in _torch(arrs, dt)]
+    with torch.cuda.device(0):
+        got = tpa.paged_attention_kernel(*targs)
+        want = tpa.paged_attention_plain(*targs)
+    torch.cuda.synchronize(dev)
+    assert got.device == dev
+    assert float((got.float() - want.float()).abs().max()) < TOL[dt]
