@@ -1,12 +1,12 @@
-"""Smoke test of the PyTorch port (src/repro_torch) on an NVIDIA GPU (phase
-19 (b) also uses every other card it sees).
+"""Smoke test of the PyTorch port (src/repro_torch) on an NVIDIA GPU (phases
+19 (b) and 20 (d) also use every other card they see).
 
 Run from the root of a checkout on a machine with a CUDA card (H100):
 
     python3 chip_smoke.py [--out results.json] [--phases 2,3,5]
 
 It builds the hand-written CUDA kernels from the checkout's sources (one
-nvcc per source, all started together) and runs nineteen phases, each a hard
+nvcc per source, all started together) and runs twenty phases, each a hard
 assert; it exits 0 only if every phase passed, and exits non-zero without
 a result when no CUDA device is visible. ``--phases`` runs a subset (the
 build always runs) and then prints neither the kernels line nor the last
@@ -101,8 +101,8 @@ line.
    drafter accepts everything; one of other weights rolls blocks back).
    After every run the allocator holds only the cache's blocks, and K2's
    launches equal calls x slots x layers.
-12. The serve features at full size: chatglm3-6b, 28 layers, bf16, 2
-   stages, 2 slots x microbatch 2. Run A: the prefix cache, fused
+12. The serve features at full width: chatglm3-6b cut to 4 of its 28
+   layers (``P12_LAYERS``), bf16, 2 stages, 2 slots x microbatch 2. Run A: the prefix cache, fused
    admission, overcommit 1.5 and a 256-block host tier on a 150-block
    pool (about 58 % of the four cells' peak demand); 16 requests, 2 a
    tick, each a shared 520-token system prompt, 32-480 unique tokens and
@@ -136,8 +136,8 @@ line.
    changing some request's tokens; falcon-mamba-7b static serving (K3)
    equal to the oracle; chunked prefill (4 chunks) equal to plain prefill
    in tokens and caches for both families; a traced run that passes the
-   span validator and holds compile events. (b) chatglm3-6b, 28 bf16
-   layers, phase 5's grid: static serving of 8 requests of 512 prompt
+   span validator and holds compile events. (b) chatglm3-6b at full
+   width, ``P12_LAYERS`` bf16 layers, phase 5's grid: static serving of 8 requests of 512 prompt
    tokens and 16-32 new ones (K1's launches = prefill calls x slots x
    layers, all on the tensor cores) beside the continuous split engine on
    the same trace; wall, tokens/s, ms per prefill / decode call, peak
@@ -146,8 +146,9 @@ line.
    (bf16 tol 2e-2). (c) Phase 5's trace with window 256 through the paged
    engine (K2), every launch windowed; the trace's longest prompt alone
    profiled, every K2 launch of its first append and decode calls against
-   the plain version. (d) ``plan_serve_capacity`` on this card's 80 GB
-   for the same model (bf16, paged, expected length 600, at most 8
+   the plain version (also ``P12_LAYERS`` layers). (d)
+   ``plan_serve_capacity`` on this card's 80 GB for chatglm3-6b's 28
+   layers (bf16, paged, expected length 600, at most 8
    slots): the planned grid serves a few requests, and its peak memory
    stands beside the plan's estimate.
 14. SSM training. (a) falcon-mamba-7b at full width, 2 fp32 layers,
@@ -155,7 +156,7 @@ line.
    step with K3 in the forward (backward: autograd of the plain scan)
    against K sequential runs through the chunked scan, by phase 6's
    criteria. (b) ``run_model_selection`` as ``launch/train.py`` calls it
-   on 4 full-width layers, 2 trials, 2 stages, seq 512, 3 steps, remat,
+   on 2 full-width layers, 2 trials, 2 stages, seq 512, 2 steps, remat,
    K3: K3's launches equal the schedule's, 0 restarts, finite losses;
    step time, tokens/s, model FLOP share, K3's share of step time and peak
    memory recorded, as phase 7.
@@ -166,17 +167,18 @@ line.
    every reset row, shared strips included, is zero) and static serving
    (K1 in each prefill) equal the oracle; chunked prefill (4 chunks)
    equals plain prefill in tokens and caches; the train step (K1 fp32)
-   equals sequential runs by phase 6's criteria. (b) The first 24 of the
-   81 layers (4 shared sites, every width as published) in bf16 (fp32
+   equals sequential runs by phase 6's criteria. (b) The first 12 of the
+   81 layers (2 shared sites, every width as published) in bf16 (fp32
    SSM state) on phase 5's grid and trace through the dense engine: every
    budget met, a second run's tokens equal, wall, tokens/s, ms per call,
    peak memory and one profiled decode call; then static serving of 8 x
-   512-token prompts: K1's launches = prefill calls x slots x 4 sites,
+   512-token prompts: K1's launches = prefill calls x slots x 2 sites,
    all on the tensor cores,
    and every K1 launch of one profiled prefill call within 2e-2 of the
    plain version. (c) ``run_model_selection`` on 12 full-width layers,
-   seq 2048, 3 steps, remat, K1 fp32 at head_dim 112: K1's launches equal
-   the schedule's; what phase 7 records.
+   seq 2048, 2 steps, remat, K1 fp32 at head_dim 112: K1's launches equal
+   the schedule's; what phase 7 records but its profiled step (left out
+   to keep the script inside its time limit).
 16. The MoE family (granite-moe-3b-a800m: 40 experts, top-8, 24 query
    heads on 8 at head_dim 64, vocab 49155; llama4-scout-17b-a16e: 16
    experts, top-1, 40 heads on 8 at head_dim 128). (a) K2 (decode, a
@@ -187,7 +189,7 @@ line.
    routed alone), capacity factor E / k (nothing dropped): 0 mismatches
    against the oracle for granite, then for llama4-scout (its 25 GB of
    weights shared with the oracle, freed after), K2's launches = calls x
-   slots x layers. (c) Granite at its first 8 of 32 layers
+   slots x layers. (c) Granite at its first 4 of 32 layers
    (``P16C_LAYERS``) in bf16 at the launcher's
    factor 1.25 on phase 5's grid and trace (``paged_serve_path``, phase
    5's checks and records); one profiled decode and one append call:
@@ -198,7 +200,8 @@ line.
    reference oracle's objective (per-shard CE and aux, each averaged), by
    phase 6's gates, at factor E / k and at 1.25; a failing gate reports
    the routing decisions that differ between K1 and plain attention. (e)
-   ``run_model_selection`` on 8 full-width granite layers, seq 2048, K1
+   ``run_model_selection`` on ``P16C_LAYERS`` full-width granite layers,
+   seq 2048, K1
    fp32, factor 1.25: K1's launches equal the schedule's; what phase 7
    records, plus the capacity-padded FLOPs and the MoE share of a
    profiled step's busy time.
@@ -222,9 +225,10 @@ line.
    K1 launch of a second prefill call against the plain version, one
    profiled decode call. (e) The train step against sequential runs by
    phase 6's gates for bert-large (K1 non-causal) and musicgen-medium
-   (frontend batches), 2 fp32 layers, seq 512. (f) bert-large at all 24
-   layers through ``run_model_selection``: 4 trials, 2 rows a
-   microbatch, 2 stages, seq 512, 3 steps, remat, K1 fp32 non-causal;
+   (frontend batches), 2 fp32 layers, seq 512. (f) bert-large at 8 of
+   its 24 layers (``P17F_LAYERS``) through ``run_model_selection``: 4
+   trials, 2 rows a microbatch, 2 stages, seq 512, 3 steps, remat, K1
+   fp32 non-causal;
    what phase 7 records, the model FLOPs counting seq^2 pairs. (g) The
    paper's MLP (mlp-1m) trained 20 steps with SGD(momentum=0.9) on the
    card and on the CPU from the same weights: losses within 1e-5.
@@ -247,19 +251,51 @@ line.
    the modeled bytes.
 19. Hydra's training mesh on device layouts (``core/pipeline.py`` with
    ``layout=``): the number of visible cards first. (a) chatglm3-6b at
-   every published width, 4 layers, fp32, K 2, M 5, seq 2048, remat, K1:
+   every published width, 2 layers (``P19_LAYERS``), fp32, K 2, M 5, seq
+   2048, remat, K1:
    2 steps of the placed train step on a data 2 x model 2 FSDP layout over
    ``["cuda:0"] * 4`` against 2 steps of the one-device step (2 logical
    data shards) from the same weights and batches: losses within 2e-4,
    grad norms and parameters within 5e-3; K1's launches (set to 0 just
-   before the placed steps) = 2 replicas x 2 steps x 10 slots x (3 x 4 -
+   before the placed steps) = 2 replicas x 2 steps x 10 slots x (3 x 2 -
    1); step ms and peak memory beside the planner's per-chip bytes. (b)
    Only where several cards are visible (otherwise it says it did not
    run): stage s on cuda:s (data 1 x model 2, the same rows as a
    microbatch of 2) and, with 4 cards, (a)'s FSDP layout on cuda:0-3,
    each against (a)'s one-device step by the same gates, with each card's
    peak memory beside ``per_chip_bytes`` and the step ms beside (a)'s.
-20. A {"kernels": [...]} line for every ported kernel, the card line, and
+20. Serving on device layouts (``ServeEngine`` and ``static_serve`` with
+   ``layout=``): the number of visible cards first. (a) chatglm3-6b at
+   every published width and all 28 layers in bf16 through the paged
+   engine with K2, phase 5's traffic (8 requests of 128-1024 prompt
+   tokens, 32 new tokens each, split admission, block 16) on a data 2 x
+   model 2 layout over ``["cuda:0"] * 4``, 1 row a shard (phase 5's 2
+   rows a slot), against the one-device engine with 2 logical data
+   shards from the same weights and pool: ttft and finished ticks, calls
+   and the allocator's free lists equal; tokens equal, or each request's
+   first differing token a bf16 near-tie (``near_ties``); K2's launches
+   (set to 0 just before each run) 4536 one device, 9072 placed (2
+   replicas x 81 calls x 2 slots x 28 layers); wall, tokens/s, ms per
+   decode call, host ops per decode call and peak memory beside the
+   one-device run's. (b) chatglm3-6b at full width, ``P20_LAYERS`` fp32
+   layers, the prefix cache on a shared-prefix trace, a host tier: data 2
+   x model 2 with FSDP and pod 2 x data 1 x model 2, each over
+   ``["cuda:0"] * 4`` and held exactly to the one-device engine (tokens,
+   ticks, calls, free lists); the placed pool gathered back is within
+   2e-5 where written and bit-equal elsewhere; extract and inject round-
+   trip two written blocks bit for bit on the FSDP layout; K2 256 each
+   (one device 128). (c) ``P20_LAYERS`` fp32 layers at full width:
+   falcon-mamba-7b through the placed dense engine with K3 (model 2 over
+   ``["cuda:0"] * 2``, slots recycled and reset, K3 112 as one device)
+   and chatglm3-6b through placed ``static_serve`` with K1 (data 2 x
+   model 2, K1 32, one device 16), tokens equal to the one-device runs.
+   (d) Only where several cards are visible (otherwise it says it did not
+   run): (a) with stage s on cuda:s (data 1 x model 2, 2 rows a slot,
+   against a one-device engine of that grid) and, with 4 cards, (a)'s
+   layout on cuda:0-3, each under (a)'s gates, with each card's peak
+   beside the planner's per-chip bytes and the ms per decode call beside
+   (a)'s.
+21. A {"kernels": [...]} line for every ported kernel, the card line, and
    the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 from __future__ import annotations
@@ -738,7 +774,9 @@ def profile_k2_by_mode(pa, make_engine, reqs):
     order, so the n-th K2 main kernel on the card is the n-th launch's,
     and a combine kernel belongs to the main kernel before it. (Matching
     by order, not by the host's and the card's clocks; the last n main
-    kernels are taken, so nothing recorded from before the run counts.)"""
+    kernels are taken, so nothing recorded from before the run counts.)
+    The host's activity is recorded too: a profile of the card's alone
+    lost one kernel record in a few hundred thousand on an H100."""
     from bisect import bisect_right
 
     from torch.profiler import ProfilerActivity, profile
@@ -831,10 +869,7 @@ def paged_serve_path(pa, cfg, opts, dev, card):
                                   gen, dtype=bf16, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    rng = np.random.default_rng(4)
-    reqs = [Request(i, rng.integers(0, cfg.vocab_size, (int(p),))
-                    .astype(np.int32), gen_len, arrival=float(i))
-            for i, p in enumerate(rng.integers(128, 1025, 8))]
+    reqs = p5_trace(cfg.vocab_size)
 
     times = {"decode": [], "append": []}
     append_tokens, chunk_lens = [], set()
@@ -875,8 +910,10 @@ def paged_serve_path(pa, cfg, opts, dev, card):
     # the wrapper would also count the host's enqueue time, since the card
     # idles between this host-bound loop's launches), each attributed to
     # the decode or append call it ran in
+    t_run = time.perf_counter() - t0
     comps2, wall2, by_mode = profile_k2_by_mode(
         pa, lambda: ServeEngine(cfg, eng, params, opts, device=dev), reqs)
+    t_prof = time.perf_counter() - t0 - t_run
     kernel_s = sum(v["kernel_s"] for v in by_mode.values())
     for v in by_mode.values():
         v["share_of_wall"] = v["kernel_s"] / wall
@@ -886,6 +923,7 @@ def paged_serve_path(pa, cfg, opts, dev, card):
     ops_per_decode, busy_ms = profile_decode_call(
         ServeEngine(cfg, eng, params, opts, device=dev), reqs[0],
         busy_by_class)
+    t_call = time.perf_counter() - t0 - t_run - t_prof
     decode_ms = 1e3 * float(np.median(times["decode"]))
     rec = dict(
         card=card, arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
@@ -912,7 +950,9 @@ def paged_serve_path(pa, cfg, opts, dev, card):
         decode_device_idle_share=(None if busy_ms is None
                                   else 1.0 - busy_ms / decode_ms),
         profiled_wall_s=wall2, param_init_s=init_s,
-        ttft_p50_ticks=st.summary().get("ttft_p50"))
+        ttft_p50_ticks=st.summary().get("ttft_p50"),
+        seconds=dict(run=t_run, k2_by_mode_profile=t_prof,
+                     decode_call_profile=t_call))
     if variants:  # decode calls take split-KV, bf16 append chunks the tile
         slots_layers = eng.n_slots * cfg.n_layers
         assert variants == {
@@ -2029,8 +2069,15 @@ def pool_round_trip(cfg, eng, cache) -> int:
     return sum(p.numel() * p.element_size() for p in payloads)
 
 
+# phases 12 and 13 (b), (c)'s depth: chatglm3-6b's first 4 of 28 layers
+# (2 a stage), every width as published; at all 28 they took 142-143 and
+# 37-41 s of the script's 1200 s on an NVIDIA H100 80GB HBM3 (700 W)
+P12_LAYERS = 4
+
+
 def phase12(pa, dev, card):
-    """The serve features at full size: chatglm3-6b, 28 layers, bf16."""
+    """The serve features at full width: chatglm3-6b cut to
+    ``P12_LAYERS`` layers, bf16."""
     from repro_torch.configs import get_config
     from repro_torch.core import pipeline as pl
     from repro_torch.core.partitioner import plan_stages
@@ -2038,7 +2085,7 @@ def phase12(pa, dev, card):
     from repro_torch.serve import Request, ServeEngine, blocks_for
     from repro_torch.tree import tree_map
 
-    cfg = get_config("chatglm3-6b")
+    cfg = dataclasses.replace(get_config("chatglm3-6b"), n_layers=P12_LAYERS)
     bf16 = torch.bfloat16
     opts = ModelOptions(compute_dtype=bf16, use_paged_kernel=True)
     variant_of = lambda sq: pa.pick_variant(bf16, sq, cfg.head_dim)
@@ -2219,7 +2266,8 @@ def phase12(pa, dev, card):
         short_b, labels_b, rec_b["ms_per_call"])
     mark("run_b_profile")
     out["seconds"] = marks
-    say("phase 12: full chatglm3-6b bf16 serve features:", json.dumps(out))
+    say(f"phase 12: full-width chatglm3-6b ({cfg.n_layers} layers) bf16 "
+        f"serve features:", json.dumps(out))
     launches = rec_a["kernel_launches"] + rec_b["kernel_launches"]
     return out, launches
 
@@ -2237,8 +2285,8 @@ def timed_steps(pl, times):
     undoes the patch."""
     real = pl.make_serve_step
 
-    def make(cfg, opts, eng, mode, tracer=None):
-        step = real(cfg, opts, eng, mode, tracer=tracer)
+    def make(cfg, opts, eng, mode, **kw):
+        step = real(cfg, opts, eng, mode, **kw)
 
         def run(params, cache, batch):
             t = time.perf_counter()
@@ -2445,14 +2493,16 @@ def phase13_exact(fa, pa, ms, dev):
 
 def phase13(fa, pa, ms, dev, card):
     """The rest of serving: (a) :func:`phase13_exact`; (b) full-width bf16
-    chatglm3-6b, all 28 layers, phase 5's grid, static serving of 8
+    chatglm3-6b cut to ``P12_LAYERS`` layers, phase 5's grid, static
+    serving of 8
     requests of 512 prompt tokens (K1 in each prefill call) beside the
     continuous split engine on the same trace, and every K1 launch of one
     profiled prefill call held to the plain version; (c) phase 5's trace
     through the paged engine with window 256 (K2), every K2 launch of one
     profiled append and one decode call held to the plain version; (d) the
-    capacity planner's grid for the same model on this card, run with a
-    few requests, its peak memory beside the plan's estimate."""
+    capacity planner's grid for the whole model (all 28 layers) on this
+    card, run with a few requests, its peak memory beside the plan's
+    estimate."""
     from repro_torch.configs import get_config
     from repro_torch.core import pipeline as pl
     from repro_torch.core import scheduler as sched
@@ -2477,7 +2527,8 @@ def phase13(fa, pa, ms, dev, card):
     torch.cuda.empty_cache()
     mark("a_exactness")
 
-    cfg = get_config("chatglm3-6b")
+    full = get_config("chatglm3-6b")
+    cfg = dataclasses.replace(full, n_layers=P12_LAYERS)
     bf16 = torch.bfloat16
     variant_of = lambda sq: pa.pick_variant(bf16, sq, cfg.head_dim)
     eng5 = pl.EngineConfig(n_trials=1, n_microbatches=2, microbatch=2,
@@ -2591,8 +2642,9 @@ def phase13(fa, pa, ms, dev, card):
                     layers=cfg.n_layers, dtype="bfloat16", stages=2,
                     slots=2, microbatch=2, prompt_len=plen,
                     requests=len(reqs))
-    say("phase 13 (b): full chatglm3-6b bf16 static serving (K1 prefill) "
-        "beside the continuous split engine:", json.dumps(out["b"]))
+    say(f"phase 13 (b): full-width chatglm3-6b ({cfg.n_layers} layers) bf16 "
+        f"static serving (K1 prefill) beside the continuous split engine:",
+        json.dumps(out["b"]))
     mark("b_profile")
 
     # (c) sliding window 256 on phase 5's trace, paged, K2
@@ -2658,13 +2710,17 @@ def phase13(fa, pa, ms, dev, card):
     win_rec.update(profiled_prompt_len=longest.prompt_len, k2=probe.k2,
                    profiled_calls=probe.calls)
     out["c"] = win_rec
-    say("phase 13 (c): full chatglm3-6b bf16 windowed paged serving (K2, "
-        "window 256):", json.dumps(out["c"]))
-    del probe
+    say(f"phase 13 (c): full-width chatglm3-6b ({cfg.n_layers} layers) bf16 "
+        f"windowed paged serving (K2, window 256):", json.dumps(out["c"]))
+    del probe, params
     gc.collect()
+    torch.cuda.empty_cache()
     mark("c_profile")
 
-    # (d) the capacity planner's grid on this card
+    # (d) the capacity planner's grid on this card, for all 28 layers
+    cfg = full
+    params = pl.init_trial_params(cfg, eng5, plan_stages(cfg, 2), gen,
+                                  dtype=bf16, device=dev)
     base = dataclasses.replace(eng5, paged=False, n_blocks=0,
                                n_microbatches=1)
     planned = sched.plan_serve_capacity(cfg, base, eng5.max_seq, paged=True,
@@ -2752,8 +2808,9 @@ def phase14(ms, dev, card):
     gc.collect()
     torch.cuda.empty_cache()
 
-    cfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=4)
-    L, n_steps = cfg.n_layers, 3
+    # 2 layers and 2 steps: 4 layers and 3 steps took 52 s of the 1200
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=2)
+    L, n_steps = cfg.n_layers, 2
 
     def expected(K, M, S):
         # one K3 launch per layer forward: per step, per (trial,
@@ -2764,16 +2821,17 @@ def phase14(ms, dev, card):
         # evaluation pass of every layer per slot
         return n_steps * K * M * (3 * L - (S - 1)) + K * M * L
 
-    # no profiled step: at about 17 s a step (NVIDIA H100 80GB HBM3,
-    # 700 W) the two more steps it takes cost as much as the path itself;
+    # no profiled step: at about 17 s a step of 4 layers (NVIDIA H100
+    # 80GB HBM3, 700 W) the two more steps it takes cost as much as the
+    # path itself;
     # a profile of one (``profile=True``) found the step's device time
     # nearly all in the plain scan's backward, elementwise kernels
     out["b"], launches = selection_path(ms, "mamba_scan_kernel", cfg,
                                         kernel_options(cfg, remat=True), 512,
                                         n_steps, expected, dev, card,
                                         profile=False)
-    say("phase 14 (b): run_model_selection, falcon-mamba-7b 4 layers fp32 "
-        "(K3):", json.dumps(out["b"]))
+    say(f"phase 14 (b): run_model_selection, falcon-mamba-7b {L} layers "
+        f"fp32 (K3):", json.dumps(out["b"]))
     return out, launches
 
 
@@ -2894,15 +2952,15 @@ def phase15_exact(fa, dev, card):
     return runs
 
 
-# phase 15 (b)'s depth: zamba2-7b's first 24 of 81 layers (4 shared
+# phase 15 (b)'s depth: zamba2-7b's first 12 of 81 layers (2 shared
 # sites), every width as published; all 81 took 94-104 s of the 1200 s
-# budget, which phase 17 needs
-P15B_LAYERS = 24
+# budget, which phase 17 needs, and 24 layers 35-38 s
+P15B_LAYERS = 12
 
 
 def phase15(fa, dev, card):
     """The hybrid family: (a) :func:`phase15_exact`; (b) serving zamba2-7b
-    cut to ``P15B_LAYERS`` layers (4 shared sites) in bf16 through the
+    cut to ``P15B_LAYERS`` layers (2 shared sites) in bf16 through the
     dense engine on phase 5's grid and trace, then static serving of 8 x
     512-token prompts with K1 at head_dim 112 in each prefill call, every
     K1 launch of one profiled prefill call against the plain version;
@@ -3068,7 +3126,7 @@ def phase15(fa, dev, card):
 
     # (c) training: 12 full-width layers, seq 2048, K1 fp32 at hd 112
     cfg = dataclasses.replace(get_config("zamba2-7b"), n_layers=12)
-    sites12, n_steps = sum(lm.shared_site_flags(cfg, 0, 12)[0]), 3
+    sites12, n_steps = sum(lm.shared_site_flags(cfg, 0, 12)[0]), 2
 
     def expected(K, M, S):
         # one K1 launch per shared-block forward, which runs inside its
@@ -3079,9 +3137,12 @@ def phase15(fa, dev, card):
         # 5, a site); then one evaluation pass per slot
         return n_steps * K * M * (3 * sites12 - (S - 1)) + K * M * sites12
 
+    # no profiled step: it cost about a minute of the script's 1200 s; 2
+    # steps, not 3: each took 15-35 s (host clock)
     out["c"], launches = selection_path(fa, "flash_attention_kernel", cfg,
                                         kernel_options(cfg, remat=True),
-                                        2048, n_steps, expected, dev, card)
+                                        2048, n_steps, expected, dev, card,
+                                        profile=False)
     assert out["c"]["variant_launches"]["fp32"] == launches
     say("phase 15 (c): run_model_selection, zamba2-7b 12 layers fp32 (K1 "
         "hd 112):", json.dumps(out["c"]))
@@ -3096,10 +3157,11 @@ def phase15(fa, dev, card):
 
 GRANITE, SCOUT = "granite-moe-3b-a800m", "llama4-scout-17b-a16e"
 GRANITE_HEADS = (24, 8, 64)  # query heads, KV heads, head_dim: group 3
-# phase 16 (c)'s depth: the first 8 of granite's 32 layers, every width as
-# published (cut to make room for phase 19: at 16 layers (c) took 59.0 s
-# and the script 1056.3 s of its 1200 s on an NVIDIA H100 80GB HBM3)
-P16C_LAYERS = 8
+# phase 16 (c) and (e)'s depth: the first 4 of granite's 32 layers, every
+# width as published (cut to keep the script inside its 1200 s: on an
+# NVIDIA H100 80GB HBM3 (c) took 59.0 s at 16 layers, 29-31 s at 8, and
+# (e) 70-77 s at 8)
+P16C_LAYERS = 4
 # K2 at granite's serving shapes (``CASES`` rows: phase 2's original decode
 # and append sweep, then phase 5's own shapes) and K1 at its training shape
 # (a ``FLASH_CASES`` row)
@@ -3545,8 +3607,9 @@ def phase16(pa, fa, ops, dev, new_flush, card):
             f"factor {cf}) vs sequential runs:", json.dumps(rec))
     mark("d_train_exact")
 
-    # (e) run_model_selection on 8 full-width layers, seq 2048, K1 fp32
-    cfg = dataclasses.replace(get_config(GRANITE), n_layers=8)
+    # (e) run_model_selection on P16C_LAYERS full-width layers, seq 2048,
+    # K1 fp32
+    cfg = dataclasses.replace(get_config(GRANITE), n_layers=P16C_LAYERS)
     n_steps, seq = 3, 2048
     opts = kernel_options(cfg, remat=True)
 
@@ -3580,8 +3643,8 @@ def phase16(pa, fa, ops, dev, new_flush, card):
                                 if busy else None)  # None: no device trace
     say(f"phase 16 (e): gang plan K={rec['trials']} M={rec['microbatches']}"
         f" (S={rec['stages']}, bubble {rec['bubble_fraction']:.4f})")
-    say("phase 16 (e): run_model_selection, granite-moe-3b-a800m 8 layers "
-        "fp32:", json.dumps(rec))
+    say(f"phase 16 (e): run_model_selection, granite-moe-3b-a800m "
+        f"{cfg.n_layers} layers fp32:", json.dumps(rec))
     out["e"] = rec
     mark("e_train")
     out["seconds"] = marks
@@ -3890,6 +3953,12 @@ def mlp_sgd(dev, card, n_steps=20):
     return rec
 
 
+# phase 17 (f)'s depth: bert-large's first 8 of 24 layers, every width as
+# published; all 24 took 27-30 s of the script's 1200 s on an NVIDIA H100
+# 80GB HBM3 (700 W)
+P17F_LAYERS = 8
+
+
 def phase17(pa, fa, ops, dev, new_flush, card):
     """The remaining families: (a) :func:`phase17_kernels`; (b)
     :func:`paged_engine_exact` on yi-34b (K2 at group 7) and
@@ -3899,8 +3968,9 @@ def phase17(pa, fa, ops, dev, new_flush, card):
     prompts); (d) :func:`musicgen_full`; (e) the train step against
     sequential runs (phase 6's gates) for bert-large (K1 non-causal) and
     musicgen-medium (frontend batches) at 2 fp32 layers, seq 512; (f)
-    bert-large at all 24 layers through ``run_model_selection``: 4 trials,
-    2 rows a microbatch, seq 512, K1 fp32 non-causal; (g) :func:`mlp_sgd`.
+    bert-large at ``P17F_LAYERS`` of its 24 layers through
+    ``run_model_selection``: 4 trials, 2 rows a microbatch, seq 512, K1
+    fp32 non-causal; (g) :func:`mlp_sgd`.
     Returns (record, launch counts by path)."""
     from repro_torch.configs import get_config
     from repro_torch.models.layers import ModelOptions, kernel_options
@@ -3954,7 +4024,7 @@ def phase17(pa, fa, ops, dev, new_flush, card):
             f"sequential runs, {name}:", json.dumps(rec))
     mark("e_train_exact")
 
-    cfg = get_config(BERT)
+    cfg = dataclasses.replace(get_config(BERT), n_layers=P17F_LAYERS)
     n_steps, seq = 3, 512
 
     def expected(K, M, S):
@@ -3972,8 +4042,8 @@ def phase17(pa, fa, ops, dev, new_flush, card):
     assert rec["variant_launches"]["fp32"] == k1_bert
     say(f"phase 17 (f): gang plan K={rec['trials']} M={rec['microbatches']}"
         f" (S={rec['stages']}, bubble {rec['bubble_fraction']:.4f})")
-    say("phase 17 (f): run_model_selection, bert-large 24 layers fp32 (K1 "
-        "non-causal):", json.dumps(rec))
+    say(f"phase 17 (f): run_model_selection, bert-large {cfg.n_layers} "
+        f"layers fp32 (K1 non-causal):", json.dumps(rec))
     out["f"] = rec
     mark("f_bert_train")
 
@@ -4212,7 +4282,9 @@ def phase18(fa, dev, card):
 # Phase 19: Hydra's training mesh on device layouts
 # ---------------------------------------------------------------------------
 
-P19_LAYERS, P19_STEPS, P19_SEED = 4, 2, 19
+# 2 layers (one a stage): at 4, phase 19 took 60-62 s of the script's
+# 1200 s on an NVIDIA H100 80GB HBM3 (700 W)
+P19_LAYERS, P19_STEPS, P19_SEED = 2, 2, 19
 
 
 def cuda_indices(layout, dev):
@@ -4379,7 +4451,413 @@ def phase19(fa, dev, card):
     return out, main_launches
 
 
-PHASES = tuple(range(1, 20))
+# ---------------------------------------------------------------------------
+# Phase 20: serving on device layouts
+# ---------------------------------------------------------------------------
+
+P20_LAYERS = 4  # (b) and (c): full width, fp32
+
+
+def p5_trace(vocab):
+    """Phase 5's traffic: 8 requests of 128-1024 prompt tokens, 32 new
+    tokens each, one a tick."""
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(4)
+    return [Request(i, rng.integers(0, vocab, (int(p),)).astype(np.int32),
+                    32, arrival=float(i))
+            for i, p in enumerate(rng.integers(128, 1025, 8))]
+
+
+def serve_run(pa, cfg, opts, eng, params, reqs, dev, layout=None, **kw):
+    """One run of ``reqs`` through a fresh ServeEngine, placed on
+    ``layout`` when one is given (``params`` then placed too). K2's
+    launches are counted over the run alone (set to 0 just before it,
+    read just after); every decode call is timed on the host clock
+    between synchronisations of the cards the run uses; their peaks are
+    read after it. Returns (engine, completions, record)."""
+    from repro_torch.serve import ServeEngine
+
+    where = dict(device=dev) if layout is None else dict(layout=layout)
+    engine = ServeEngine(cfg, eng, params, opts, **where, **kw)
+    cards = cuda_indices(layout, dev)
+    sync = lambda: [torch.cuda.synchronize(i) for i in cards]
+    step, times = engine.decode_step, []
+
+    def timed(*args):
+        sync()
+        t = time.perf_counter()
+        out = step(*args)
+        sync()
+        times.append(time.perf_counter() - t)
+        return out
+
+    engine.decode_step = timed
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+    reset_counts(pa)
+    sync()
+    t0 = time.perf_counter()
+    comps = engine.run([r.clone() for r in reqs])
+    sync()
+    wall = time.perf_counter() - t0
+    engine.decode_step = step
+    st = engine.stats
+    for r, c in zip(reqs, comps):
+        assert len(c.tokens) == r.max_new_tokens, (r.rid, len(c.tokens))
+    rec = dict(layout=None if layout is None else layout.describe(),
+               device=str(dev) if layout is None else None,
+               requests=len(comps), tokens=st.tokens_generated,
+               ticks=st.ticks, calls=st.calls, wall_s=wall,
+               tokens_per_s=st.tokens_generated / wall,
+               decode_calls=len(times),
+               decode_ms_per_call=(1e3 * float(np.median(times)) if times
+                                   else None),
+               k2_launches=pa.launches,
+               max_memory_allocated_gb={
+                   f"cuda:{i}": torch.cuda.max_memory_allocated(i) / 1e9
+                   for i in cards})
+    return engine, comps, rec
+
+
+def schedule(engine, comps) -> dict:
+    """What phase 20 holds equal between two runs of a trace: each
+    request's ttft and finished ticks, the calls, and the allocator's free
+    lists."""
+    return dict(ticks=[(c.rid, c.ttft_ticks, c.finished_tick)
+                       for c in comps],
+                calls=engine.stats.calls,
+                free=(None if engine.allocator is None else
+                      [list(f) for f in engine.allocator._free]))
+
+
+def held_to_one_device(name, sched, comps, ref_sched, ref_comps, rec,
+                       exact):
+    """Phase 20's gates against the one-device run: the schedule equal;
+    the tokens equal (``exact``), or else counted here and judged by the
+    caller as bf16 near-ties."""
+    rec["tokens_equal_share"] = float(np.mean(
+        [a.tokens == b.tokens for a, b in zip(comps, ref_comps)]))
+    rec["first_divergence"] = first_divergence(comps, ref_comps)
+    say(f"phase 20 {name}:", json.dumps(rec))
+    assert sched == ref_sched, f"phase 20 {name}: the schedule differs"
+    if exact:
+        assert rec["tokens_equal_share"] == 1.0, \
+            f"phase 20 {name}: tokens differ"
+
+
+def phase20_full(pa, dev, card, n_cards):
+    """(a), and (d) where several cards are visible."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.partitioner import plan_stages
+    from repro_torch.core.scheduler import per_chip_bytes
+    from repro_torch.launch.mesh import make_device_layout
+    from repro_torch.models.layers import ModelOptions
+    from repro_torch.serve import blocks_for
+
+    bf16 = torch.bfloat16
+    cfg = get_config("chatglm3-6b")
+    max_seq = 1024 + 32
+    eng = pl.EngineConfig(n_trials=1, n_microbatches=2, microbatch=1,
+                          n_stages=2, data_size=2, max_seq=max_seq,
+                          cache_dtype=bf16, prefill_chunks=2, paged=True,
+                          block_size=BS,
+                          n_blocks=4 * blocks_for(max_seq, BS))
+    opts = ModelOptions(compute_dtype=bf16, use_paged_kernel=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = pl.init_trial_params(cfg, eng, plan_stages(cfg, 2), gen,
+                                  dtype=bf16, device=dev)
+    reqs = p5_trace(cfg.vocab_size)
+    per_slot_layer = eng.n_slots * cfg.n_layers
+    out = {}
+
+    def profiled(engine, rec):
+        rec["host_ops_per_decode_call"], rec["decode_busy_ms"] = \
+            profile_decode_call(engine, reqs[0])
+
+    one_e, one_c, one = serve_run(pa, cfg, opts, eng, params, reqs, dev)
+    one_s = schedule(one_e, one_c)
+    one["expected_k2_launches"] = one["calls"] * per_slot_layer
+    assert one["k2_launches"] == one["expected_k2_launches"], one
+    profiled(one_e, one)
+    del one_e
+    out["a_one_device"] = one
+    say("phase 20 (a) one device:", json.dumps(one))
+
+    def placed_case(name, eng_p, layout, ref, ref_s, ref_c):
+        placed = pl.place_trial_params(cfg, eng_p, params, layout)
+        tidy()
+        e, c, rec = serve_run(pa, cfg, opts, eng_p, placed, reqs, dev,
+                              layout)
+        sched = schedule(e, c)
+        rec["expected_k2_launches"] = (pl.pool_partitions(eng_p)
+                                       * ref["calls"] * per_slot_layer)
+        profiled(e, rec)
+        del e, placed
+        tidy()
+        for n in ("wall_s", "decode_ms_per_call", "host_ops_per_decode_call",
+                  "tokens_per_s"):
+            rec[f"{n}_over_one_device"] = rec[n] / ref[n] if ref[n] else None
+        held_to_one_device(name, sched, c, ref_s, ref_c, rec, exact=False)
+        assert rec["k2_launches"] == rec["expected_k2_launches"], rec
+        if rec["tokens_equal_share"] < 1.0:  # bf16: only at near-ties
+            nt = near_ties(cfg, params, dev, reqs, c, ref_c)
+            rec["near_ties"] = nt
+            say(f"phase 20 {name} near ties:", json.dumps(nt))
+            assert nt["divergence"]["within_noise"] == \
+                nt["divergence"]["n"], f"phase 20 {name}: not a near-tie"
+        return rec
+
+    layout = make_device_layout(2, 2, devices=["cuda:0"] * 4)
+    out["a"] = placed_case("(a) data 2 x model 2 on cuda:0 x 4", eng,
+                           layout, one, one_s, one_c)
+    launches = out["a"]["k2_launches"]
+
+    out["d"] = []
+    if n_cards < 2:
+        say(f"phase 20 (d): not run: {n_cards} CUDA device(s) visible, the "
+            f"placement across cards needs at least 2")
+        out["d_not_run"] = f"{n_cards} CUDA device(s)"
+        return out, launches
+    eng_s = dataclasses.replace(eng, microbatch=2, data_size=1)
+    ref_e, ref_c, ref = serve_run(pa, cfg, opts, eng_s, params, reqs, dev)
+    ref_s = schedule(ref_e, ref_c)
+    profiled(ref_e, ref)
+    del ref_e
+    out["d_one_device_data1"] = ref
+    cases = [("(d) data 1 x model 2 on cuda:0-1", eng_s,
+              make_device_layout(1, 2), ref, ref_s, ref_c)]
+    if n_cards >= 4:
+        cases.append(("(d) data 2 x model 2 on cuda:0-3", eng,
+                      make_device_layout(2, 2), one, one_s, one_c))
+    for name, eng_p, lay, r, r_s, r_c in cases:
+        rec = placed_case(name, eng_p, lay, r, r_s, r_c)
+        rec["planner_gb_per_card"] = per_chip_bytes(
+            cfg, eng_p, max_seq, False, param_bytes=2).total / 1e9
+        rec["decode_ms_per_call_over_a"] = \
+            rec["decode_ms_per_call"] / out["a"]["decode_ms_per_call"]
+        say(f"phase 20 {name} beside the planner:", json.dumps(
+            {n: rec[n] for n in ("planner_gb_per_card",
+                                 "max_memory_allocated_gb",
+                                 "decode_ms_per_call_over_a")}))
+        out["d"].append(rec)
+    return out, launches
+
+
+def pool_parity(cfg, eng, placed_cache, layout, ref_cache) -> float:
+    """The placed pool gathered back against the one-device run's: every
+    written entry within 2e-5, every unwritten one bit-equal; returns the
+    largest error."""
+    from repro_torch.core import pipeline as pl
+
+    got = pl.gather_serve_cache(cfg, eng, placed_cache, layout)
+    err = 0.0
+    for n in ("k", "v"):
+        a, b = got["layers"][n], ref_cache["layers"][n]
+        written = (a != 0) | (b != 0)
+        assert torch.equal(a[~written], b[~written]), n
+        err = max(err, float((a - b)[written].abs().max()))
+    assert err <= 2e-5, f"pool entries differ by {err}"
+    return err
+
+
+def placed_round_trip(cfg, eng, cache, layout) -> int:
+    """The host tier's round trip on a placed pool, bit for bit: extract
+    two written blocks of shard 1 (read from both stages' devices) and
+    inject them over two others; returns the payload bytes."""
+    from repro_torch.core import pipeline as pl
+
+    tk = pl.make_transfer_kernels(cfg, eng, layout=layout)
+    src, dst = [0, 1], [2, 3]
+    payloads = tk.extract(cache, 0, 1, src)
+    assert all(p.device.type == "cpu" and bool(p.ne(0).any())
+               for p in payloads)
+    tk.inject(cache, 0, 1, dst, payloads)
+    for s in range(eng.n_stages):
+        for buf in cache[0][1][s]["layers"].values():
+            assert torch.equal(buf[0][:, dst].view(torch.int32),
+                               buf[0][:, src].view(torch.int32))
+    return sum(p.numel() * p.element_size() for p in payloads)
+
+
+def phase20_exact(pa, dev, card):
+    """(b): fp32, ``P20_LAYERS`` full-width layers, prefix cache and a
+    host tier, held exactly against the one-device engine on two
+    layouts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.partitioner import plan_stages
+    from repro_torch.launch.mesh import make_device_layout
+    from repro_torch.models.layers import ModelOptions
+    from repro_torch.serve import blocks_for
+
+    cfg = dataclasses.replace(get_config("chatglm3-6b"),
+                              n_layers=P20_LAYERS)
+    max_seq = 80
+    eng = pl.EngineConfig(n_trials=1, n_microbatches=2, microbatch=1,
+                          n_stages=2, data_size=2, max_seq=max_seq,
+                          cache_dtype=torch.float32, prefill_chunks=2,
+                          paged=True, block_size=BS,
+                          n_blocks=4 * blocks_for(max_seq, BS),
+                          host_blocks=8)
+    opts = ModelOptions(use_paged_kernel=True)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    params = pl.init_trial_params(cfg, eng, plan_stages(cfg, 2), gen,
+                                  device=dev)
+    # a shared 40-token head, so later requests hit the prefix cache
+    reqs = shared_prefix_reqs(np.random.default_rng(20), cfg.vocab_size, 8,
+                              40, (4, 30), 4, 2)
+    feats = dict(prefix_cache=True)
+    one_e, one_c, one = serve_run(pa, cfg, opts, eng, params, reqs, dev,
+                                  **feats)
+    assert one_e.stats.prefix_hits > 0, "no prefix hit: vacuous"
+    one_s = schedule(one_e, one_c)
+    out = {"b_one_device": one}
+    say("phase 20 (b) one device:", json.dumps(one))
+    launches = 0
+    for name, eng_p in (
+            ("(b) data 2 x model 2 FSDP", dataclasses.replace(eng,
+                                                              fsdp=True)),
+            ("(b) pod 2 x data 1 x model 2", dataclasses.replace(
+                eng, data_size=1, pod_size=2, pod_axis="pod"))):
+        layout = make_device_layout(eng_p.data_size, 2,
+                                    multi_pod=eng_p.pod_size > 1,
+                                    devices=["cuda:0"] * 4)
+        placed = pl.place_trial_params(cfg, eng_p, params, layout)
+        e, c, rec = serve_run(pa, cfg, opts, eng_p, placed, reqs, dev,
+                              layout, **feats)
+        rec["expected_k2_launches"] = 2 * one["k2_launches"]
+        rec["prefix_hits"] = e.stats.prefix_hits
+        rec["pool_max_err"] = pool_parity(cfg, eng_p, e.cache, layout,
+                                          one_e.cache)
+        if eng_p.fsdp:
+            rec["round_trip_bytes"] = placed_round_trip(cfg, eng_p, e.cache,
+                                                        layout)
+        held_to_one_device(name, schedule(e, c), c, one_s, one_c, rec,
+                           exact=True)
+        assert rec["k2_launches"] == rec["expected_k2_launches"], rec
+        launches += rec["k2_launches"]
+        out["b" if eng_p.fsdp else "b_pod"] = rec
+        del e, placed
+        tidy()
+    return out, launches
+
+
+def phase20_other(fa, ms, dev, card):
+    """(c): fp32, ``P20_LAYERS`` full-width layers: falcon-mamba-7b
+    through the placed dense engine with K3 (model 2 on cuda:0 x 2, slot
+    reset included) and chatglm3-6b through placed ``static_serve`` with
+    K1 (data 2 x model 2 on cuda:0 x 4), each against the one-device run:
+    tokens equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.partitioner import plan_stages
+    from repro_torch.launch.mesh import make_device_layout
+    from repro_torch.models.layers import kernel_options
+    from repro_torch.serve import Request, ServeEngine, static_serve
+
+    out = {}
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"),
+                              n_layers=P20_LAYERS)
+    eng, opts, params, make = dense_engine(cfg, torch.float32, dev, 9, 80)
+    reqs = trace4(cfg.vocab_size)
+    runs = {}
+    layout = make_device_layout(1, 2, devices=["cuda:0"] * 2)
+    for name in ("one_device", "placed"):
+        engine = make() if name == "one_device" else ServeEngine(
+            cfg, eng, pl.place_trial_params(cfg, eng, params, layout), opts,
+            layout=layout)
+        reset, resets = engine.reset_fn, []
+        engine.reset_fn = lambda c, m: resets.append(
+            int(np.asarray(m).sum())) or reset(c, m)
+        reset_counts(ms)
+        t = time.perf_counter()
+        comps = engine.run([r.clone() for r in reqs])
+        torch.cuda.synchronize()
+        runs[name] = (schedule(engine, comps), comps, dict(
+            wall_s=time.perf_counter() - t, k3_launches=ms.launches,
+            calls=engine.stats.calls, reset_rows=sum(resets)))
+        assert sum(resets) == len(reqs) > engine.batcher.n_cells
+        del engine
+    ref_s, ref_c, ref = runs["one_device"]
+    sched, comps, rec = runs["placed"]
+    rec["one_device"] = ref
+    assert rec["k3_launches"] == ref["k3_launches"] > 0, rec
+    held_to_one_device("(c) falcon-mamba-7b dense, model 2 on cuda:0 x 2",
+                       sched, comps, ref_s, ref_c, rec, exact=True)
+    out["c_ssm"], k3 = rec, rec["k3_launches"]
+    del params
+    tidy()
+
+    cfg = dataclasses.replace(get_config("chatglm3-6b"), n_layers=P20_LAYERS)
+    eng = pl.EngineConfig(n_trials=1, n_microbatches=2, microbatch=1,
+                          n_stages=2, data_size=2, max_seq=64 + 6,
+                          cache_dtype=torch.float32)
+    opts = kernel_options(cfg)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    params = pl.init_trial_params(cfg, eng, plan_stages(cfg, 2), gen,
+                                  device=dev)
+    rng = np.random.default_rng(21)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, (64,))
+                    .astype(np.int32), 2 + i % 5) for i in range(8)]
+    layout = make_device_layout(2, 2, devices=["cuda:0"] * 4)
+    res = {}
+    for name in ("one_device", "placed"):
+        reset_counts(fa)
+        t = time.perf_counter()
+        comps, st = (static_serve(cfg, eng, params, reqs, opts, device=dev)
+                     if name == "one_device" else static_serve(
+                         cfg, eng, pl.place_trial_params(cfg, eng, params,
+                                                         layout),
+                         reqs, opts, layout=layout))
+        torch.cuda.synchronize()
+        res[name] = (comps, dict(wall_s=time.perf_counter() - t,
+                                 k1_launches=fa.launches, calls=st.calls,
+                                 ticks=st.ticks))
+    ref_c, ref = res["one_device"]
+    comps, rec = res["placed"]
+    rec["one_device"] = ref
+    prefills = -(-len(reqs) // (eng.n_slots * eng.mb_global))
+    rec["expected_k1_launches"] = 2 * prefills * eng.n_slots * cfg.n_layers
+    assert ref["k1_launches"] * 2 == rec["k1_launches"] \
+        == rec["expected_k1_launches"], rec
+    held_to_one_device("(c) chatglm3-6b static_serve, data 2 x model 2",
+                       dict(ticks=[(c.rid, c.finished_tick) for c in comps],
+                            calls=rec["calls"]),
+                       comps, dict(ticks=[(c.rid, c.finished_tick)
+                                          for c in ref_c],
+                                   calls=ref["calls"]),
+                       ref_c, rec, exact=True)
+    out["c_static"] = rec
+    return out, k3, rec["k1_launches"]
+
+
+def phase20(pa, fa, ms, dev, card):
+    """Serving on device layouts (``layout=`` through the engine): (a)
+    full chatglm3-6b in bf16 on data 2 x model 2 over cuda:0 x 4, (b) and
+    (c) fp32 exactness at ``P20_LAYERS`` layers, (d) across cards where
+    several are visible. Returns (record, K2, K1 and K3 launches of the
+    placed paths)."""
+    n_cards = torch.cuda.device_count()
+    say(f"phase 20: torch.cuda.device_count() = {n_cards}")
+    t = time.perf_counter()
+    out, k2 = phase20_full(pa, dev, card, n_cards)
+    out["seconds_a_d"] = time.perf_counter() - t
+    tidy()
+    t = time.perf_counter()
+    exact, k2_exact = phase20_exact(pa, dev, card)
+    out.update(exact)
+    out["seconds_b"] = time.perf_counter() - t
+    tidy()
+    t = time.perf_counter()
+    other, k3, k1 = phase20_other(fa, ms, dev, card)
+    out.update(other)
+    out["seconds_c"] = time.perf_counter() - t
+    return out, dict(k2=k2 + k2_exact, k1=k1, k3=k3)
+
+
+PHASES = tuple(range(1, 21))
 
 
 def write_json(path: str, res: dict) -> None:
@@ -4507,6 +4985,9 @@ def main(argv=None) -> int:
     if 19 in run:
         res["phase19"], p19_launches = phase19(fa, dev, card)
         lap(19)
+    if 20 in run:
+        res["phase20"], p20 = phase20(pa, fa, ms, dev, card)
+        lap(20)
     res["seconds"] = dict(build=build_s, **seconds)
     say("phase seconds:", json.dumps(res["seconds"]))
     if run != set(PHASES):
@@ -4537,7 +5018,8 @@ def main(argv=None) -> int:
                 "phase13_split_beside_static": p13["k2_split"],
                 "phase13_planned_grid": p13["k2_planned"],
                 "phase16_moe_serving": p16["serving"],
-                "phase17_dense_serving": p17["k2_dense_serving"]}
+                "phase17_dense_serving": p17["k2_dense_serving"],
+                "phase20_placed_serving": p20["k2"]}
     k1_paths = {"phase7_training": fa_launches,
                 "phase13_static_prefill": p13["k1_static_prefill"],
                 "phase15_hybrid_static_prefill": p15["k1_static_prefill"],
@@ -4547,9 +5029,11 @@ def main(argv=None) -> int:
                 "phase17_musicgen_prefill": p17["k1_musicgen_prefill"],
                 "phase17_bert_training": p17["k1_bert_training"],
                 "phase18_counted_training": p18_launches,
-                "phase19_placed_training": p19_launches}
+                "phase19_placed_training": p19_launches,
+                "phase20_placed_static_prefill": p20["k1"]}
     k3_paths = {"phase10_ssm_serving": ms_launches,
-                "phase14_ssm_training": ms_train_launches}
+                "phase14_ssm_training": ms_train_launches,
+                "phase20_placed_dense_serving": p20["k3"]}
     kernels = {"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",

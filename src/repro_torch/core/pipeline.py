@@ -6,19 +6,25 @@ data × model) device mesh. The port keeps the schedule's semantics
 exactly — the tests compare losses, gradients, tokens, ticks and call
 counts with the reference — and runs it in one of two ways:
 
-* **one device** (no layout; every serving call and the default train
-  step): the mesh is structure inside one process on one device;
-* **a device layout** (``make_train_step(..., layout=)``, training only):
+* **one device** (no layout, the default): the mesh is structure inside
+  one process on one device;
+* **a device layout** (``layout=`` to ``make_train_step``,
+  ``make_serve_step``, ``make_slot_reset`` and ``make_transfer_kernels``):
   stage ``s`` of data replica ``(p, d)`` runs on device ``(p, d, s)`` of a
   ``launch.mesh.DeviceLayout``, each device holding its own shard of the
   parameters (:func:`place_trial_params`, the counterpart of
-  ``param_pspecs``). One process issues every (stage, replica) unit on its
-  own device; activations hop with ``.to``, the vocab-parallel partials
-  are added on stage 0 and stage S−1 (the reference's psums), FSDP
-  gathers each layer's full weights on the unit's device (its autograd is
-  the reduce-scatter), and replicated leaves get their gradients summed
-  over replicas (:func:`reduce_placed_grads`). One ``backward()`` runs
-  through all devices.
+  ``param_pspecs``) and, in serving, its stage's layers of its shard's
+  cache (:func:`place_serve_cache`, the counterpart of
+  ``serve_cache_pspecs``). One process issues every (stage, replica) unit
+  on its own device; activations hop with ``.to``, the vocab-parallel
+  partials are added on stage 0 and stage S−1 (the reference's psums),
+  and FSDP gathers each layer's full weights on the unit's device. In
+  training the FSDP join's autograd is the reduce-scatter, replicated
+  leaves get their gradients summed over replicas
+  (:func:`reduce_placed_grads`), and one ``backward()`` runs through all
+  devices. In serving each unit indexes its own shard's pool with the
+  tables' shard-local ids, and the greedy head's per-stage (max, argmax)
+  pairs meet on the layout's root.
 
 What the one-device form does with the mesh:
 
@@ -53,6 +59,7 @@ reference donates them).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -86,8 +93,8 @@ class EngineConfig:
     over the data axis). The placed train step runs them on a device
     layout; the dry-run records them for its production layouts, and the
     memory model (``core/scheduler.py``) counts them as the reference
-    does. Without a layout the steps refuse an engine whose fields need
-    one (:func:`check_runnable`).
+    does. Without a layout the train and serve steps refuse an engine
+    whose fields need one (:func:`check_runnable`).
     """
 
     n_trials: int  # K — concurrent model variants
@@ -163,13 +170,15 @@ def check_runnable(eng: EngineConfig) -> None:
     need a device layout: FSDP over several data rows and the pod axis
     place shards on several devices, and so does a batch replicated over
     data rows (over one data row these fields change nothing). The
-    placed train step runs them (``make_train_step(..., layout=)``)."""
+    placed steps run them (``layout=`` to ``make_train_step`` or
+    ``make_serve_step``)."""
     if eng.pod_size > 1 or (eng.data_size > 1
                             and (eng.fsdp or eng.batch_replicated)):
         raise ValueError(
             "without a device layout the port runs on one card: pod_size "
             "> 1, and fsdp or a replicated batch over data rows, need the "
-            "placed train step (make_train_step(..., layout=))")
+            "placed steps (make_train_step(..., layout=), "
+            "make_serve_step(..., layout=))")
 
 
 def check_layout(eng: EngineConfig, layout) -> None:
@@ -247,9 +256,12 @@ class Split:
     data: Optional[int] = None
 
 
+@functools.lru_cache(maxsize=64)
 def param_splits(cfg: ArchConfig, eng: EngineConfig):
     """A :class:`Split` per parameter leaf, as the reference's
-    ``param_pspecs`` places it:
+    ``param_pspecs`` places it (cached: its ``meta`` build of the tree
+    takes seconds at full width, and every placed step reads it; callers
+    only read the tree):
 
     layers/*   : (K, Lp, ...)   -> stage axis 1, FSDP dim over data
     embed/tok  : (K, Vp, D)     -> stage axis 1      [vocab-parallel]
@@ -673,6 +685,31 @@ def _replica_rows(eng: EngineConfig, batch, p: int, d: int, device):
             .to(device, non_blocking=True) for n, v in batch.items()}
 
 
+def _fsdp_gather(cfg: ArchConfig, eng: EngineConfig, layout, local):
+    """fn(p, d, s, k) -> the ``layer_param_fn`` of unit (p, d, s) on trial
+    k (None without FSDP): local layer i's leaves joined over the data
+    rows on the unit's device (the reference's ``make_layer_gather``).
+    ``local[p][d][s]``: device (p, d, s)'s per-trial dicts."""
+    if not eng.fsdp:
+        return lambda p, d, s, k: None
+    splits = param_splits(cfg, eng)["layers"]
+
+    def make(p, d, s, k):
+        here = layout.device(p, d, s)
+
+        def gather(i, p_i):
+            shards = [local[p][r][s][k]["layers"][i]
+                      for r in range(eng.data_size)]
+            return tree_map(
+                lambda sp, *ls: ls[d] if sp.data is None else torch.cat(
+                    [x.to(here) for x in ls], dim=sp.data - 2),
+                splits, *shards)
+
+        return gather
+
+    return make
+
+
 def _placed_train_loss(cfg: ArchConfig, opts: ModelOptions,
                        eng: EngineConfig, layout, local, batch):
     """The tick loop on a device layout. ``local[p][d][s]``: device (p, d,
@@ -692,24 +729,9 @@ def _placed_train_loss(cfg: ArchConfig, opts: ModelOptions,
             for p in range(n_pod) for d in range(n_data) for s in range(S)}
     pos = {(p, d, s): torch.arange(seq, device=dev(p, d, s)).expand(
         eng.microbatch, seq) for p, d, s in rows}
-    splits = param_splits(cfg, eng)["layers"] if eng.fsdp else None
-
-    def layer_gather(p, d, s, k):
-        """FSDP: local layer i's leaves joined over the data rows on the
-        unit's device, inside its remat boundary (autograd of the join is
-        the reduce-scatter onto each row's shard)."""
-        if splits is None:
-            return None
-        here = dev(p, d, s)
-
-        def gather(i, p_i):
-            shards = [local[p][r][s][k]["layers"][i] for r in range(n_data)]
-            return tree_map(
-                lambda sp, *ls: ls[d] if sp.data is None else torch.cat(
-                    [x.to(here) for x in ls], dim=sp.data - 2),
-                splits, *shards)
-
-        return gather
+    # inside each layer's remat boundary: autograd of the join is the
+    # reduce-scatter onto each row's shard
+    layer_gather = _fsdp_gather(cfg, eng, layout, local)
 
     def embed(p, d, k, m):
         if not eng.vocab_parallel:
@@ -950,13 +972,24 @@ def _check_paged_support(cfg: ArchConfig, eng: EngineConfig) -> None:
             "states are O(1) per row and have nothing to page)")
     if eng.n_blocks < 1:
         raise ValueError("paged serving needs n_blocks >= 1")
-    if eng.n_blocks % eng.data_size:
+    n_parts = pool_partitions(eng)
+    if eng.n_blocks % n_parts:
         raise ValueError(f"n_blocks={eng.n_blocks} must divide evenly over "
-                         f"the {eng.data_size} data-parallel pool partitions")
+                         f"the {n_parts} data-parallel pool partitions")
 
 
-def serve_cache_struct(cfg: ArchConfig, eng: EngineConfig, device=None):
-    """The serving caches, zero-filled.
+def pool_partitions(eng: EngineConfig) -> int:
+    """Cache shards per trial: one per data-parallel replica (the data axis
+    times the pod axis), or one shared by every replica when the batch is
+    replicated (the reference's ``serve_cache_pspecs``)."""
+    return 1 if eng.batch_replicated else eng.dp_degree
+
+
+def serve_cache_struct(cfg: ArchConfig, eng: EngineConfig, device=None,
+                       layout=None):
+    """The serving caches, zero-filled (with ``layout``: placed, as
+    :func:`place_serve_cache` places them, each device's shard allocated
+    on it).
 
     Dense layout: layer leaves (K, cache_groups, Lp, mb_global, ...) — one
     strip per (trial, slot group, layer, row): K/V (max_seq, h_kv, hd) for
@@ -968,6 +1001,13 @@ def serve_cache_struct(cfg: ArchConfig, eng: EngineConfig, device=None):
     pool per (trial, layer), shared by every slot cell — leaves (K, Lp,
     n_blocks, block_size, h_kv, hd); data shard ``i`` owns blocks
     ``[i·n_blocks/dp, (i+1)·n_blocks/dp)``."""
+    if layout is not None:
+        full = serve_cache_struct(cfg, eng, device="meta")
+        check_layout(eng, layout)
+        return _grid(layout, lambda p, d, s: _map_cache(
+            lambda x: torch.zeros(_cache_local(eng, x, p, d, s).shape,
+                                  dtype=x.dtype,
+                                  device=layout.device(p, d, s)), full))
     _check_family(cfg)
     plan = plan_stages(cfg, eng.n_stages)
     if eng.paged:
@@ -997,13 +1037,106 @@ def serve_cache_struct(cfg: ArchConfig, eng: EngineConfig, device=None):
 def global_block_tables(eng: EngineConfig, tables):
     """(..., mb_global, width) shard-local ids -> global pool ids: row r
     belongs to shard r // microbatch, whose slice starts at
-    shard · n_blocks / data_size; -1 (unallocated) stays -1."""
+    shard · n_blocks / data_size; -1 (unallocated) stays -1. The one-device
+    form only: a placed unit indexes its own shard's pool with the local
+    ids (an idle row's -1 then reads local block 0, as in the
+    reference)."""
     mbg = tables.shape[-2]
     per_shard = eng.n_blocks // eng.data_size
     off = ((torch.arange(mbg, device=tables.device) // eng.microbatch)
            * per_shard).to(tables.dtype)
     return torch.where(tables >= 0, tables + off[:, None],
                        torch.full_like(tables, -1))
+
+
+# ---------------------------------------------------------------------------
+# The serving cache on a device layout: the counterpart of
+# ``serve_cache_pspecs``
+# ---------------------------------------------------------------------------
+
+
+def _map_cache(fn, cache, *rest):
+    """``fn`` over a serving cache tree's leaves (a ``shared`` of None, the
+    families without shared sites, stays None)."""
+    return tree_map(lambda x, *r: None if x is None else fn(x, *r), cache,
+                    *rest)
+
+
+def _cache_axes(eng: EngineConfig):
+    """(stage axis, shard axis) of every serving cache leaf: the pool's
+    layer and block axes (K, Lp, n_blocks, ...), or the dense strips'
+    layer (site) and row axes (K, G, Lp | sites, mb_global, ...)."""
+    return (1, 2) if eng.paged else (2, 3)
+
+
+def _shard(eng: EngineConfig, p: int, d: int) -> Optional[int]:
+    """Replica (p, d)'s cache shard (pod-major, as the reference shards
+    over ``("pod", "data")``); None when every replica holds all of it."""
+    return None if eng.batch_replicated else p * eng.data_size + d
+
+
+def _cache_local(eng: EngineConfig, x, p: int, d: int, s: int):
+    """Device (p, d, s)'s slice of a serving cache leaf (a view): stage
+    s's layers (or shared sites) and replica (p, d)'s blocks (or rows)."""
+    st, sh = _cache_axes(eng)
+    parts = ((st, s, eng.n_stages),
+             (sh, _shard(eng, p, d), pool_partitions(eng)))
+    for axis, i, n in parts:
+        if i is None:
+            continue
+        if x.shape[axis] % n:
+            raise ValueError(f"cache dim {axis} of shape {tuple(x.shape)} "
+                             f"does not split into {n}")
+        w = x.shape[axis] // n
+        x = x.narrow(axis, i * w, w)
+    return x
+
+
+def place_serve_cache(cfg: ArchConfig, eng: EngineConfig, cache, layout):
+    """A serving cache tree (:func:`serve_cache_struct`, any device) split
+    over a device layout: nested lists ``[p][d][s]`` of device (p, d, s)'s
+    own tree, each leaf a fresh contiguous tensor on it. The paged pool
+    goes as (K, Lp / S, n_blocks / dp, bs, h_kv, hd): stage s's layers of
+    replica (p, d)'s pool partition; dense strips (and the hybrid shared
+    sites) as stage s's layers (sites) of the replica's rows. A replicated
+    batch replicates the whole pool (or all rows) over the replicas."""
+    check_layout(eng, layout)
+
+    def local(p, d, s):
+        dev = layout.device(p, d, s)
+
+        def one(x):
+            x = _cache_local(eng, x, p, d, s)
+            return torch.empty(x.shape, dtype=x.dtype, device=dev).copy_(x)
+
+        return _map_cache(one, cache)
+
+    with torch.no_grad():
+        return _grid(layout, local)
+
+
+def gather_serve_cache(cfg: ArchConfig, eng: EngineConfig, placed, layout,
+                       device=None):
+    """The inverse of :func:`place_serve_cache`, bit for bit: the one-device
+    cache tree on ``device`` (default the layout's root), from each
+    shard's first holder."""
+    dev = layout.root if device is None else torch.device(device)
+    st, sh = _cache_axes(eng)
+    n_pod, n_data, n_st = layout.devices.shape
+    reps = ([(0, 0)] if eng.batch_replicated else
+            [(p, d) for p in range(n_pod) for d in range(n_data)])
+
+    def one(*leaves):  # leaves in (p, d, s) order
+        def at(p, d, s):
+            return leaves[(p * n_data + d) * n_st + s].to(dev)
+
+        return torch.cat([torch.cat([at(p, d, s) for p, d in reps], dim=sh)
+                          for s in range(n_st)], dim=st)
+
+    flat = [placed[p][d][s] for p in range(n_pod) for d in range(n_data)
+            for s in range(n_st)]
+    with torch.no_grad():
+        return _map_cache(one, *flat)
 
 
 SERVE_MODES = ("prefill", "decode", "append", "mixed", "verify")
@@ -1016,7 +1149,7 @@ def _check_mrope_mode(cfg: ArchConfig, mode: str) -> None:
 
 
 def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
-                   params, cache, batch, mode: str):
+                   params, cache, batch, mode: str, layout=None):
     """One pipelined serving call over dense strips or the paged pool.
 
     prefill (dense only): batch = {tokens (K,M,mbg,seq)} — each slot's
@@ -1055,6 +1188,14 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
     every query to the trailing window. Returns (cache, tokens_out
     (K,M,mbg) int32, logit_max (K,M,mbg) float32); the cache is updated in
     place.
+
+    With ``layout``, ``params`` is the placed tree of
+    :func:`place_trial_params` and ``cache`` the placed cache of
+    :func:`place_serve_cache`: unit (s, slot) of replica (p, d) runs on
+    device (p, d, s) over the replica's rows of the batch (every row when
+    the batch is replicated), its block tables indexing its own shard's
+    pool with the shard-local ids; the outputs come back on the layout's
+    root.
     """
     if mode not in SERVE_MODES:
         raise ValueError(f"unknown serve mode {mode!r} (one of "
@@ -1070,6 +1211,9 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
         raise ValueError("dense append/decode index one cache group per "
                          "slot: run with prefill_chunks=1 (as the serve "
                          "engine does)")
+    if layout is not None:
+        return cache, *_placed_serve(cfg, opts, eng, layout, params, cache,
+                                     batch, mode)
     S, K = eng.n_stages, eng.n_trials
     nc = eng.prefill_chunks if mode == "prefill" else 1
     plan = plan_stages(cfg, S)
@@ -1169,8 +1313,178 @@ def pipeline_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
     return cache, tok_out, val_out
 
 
+def _serve_batch(batch, mode: str) -> dict:
+    """The entries of a serving batch that ``mode`` reads, as tensors."""
+    names = ["tokens", "active", "block_tables"]
+    names += (["frontend_embeds", "mrope_pos"] if mode == "prefill"
+              else ["positions"])
+    if mode in ("mixed", "verify"):
+        names.append("qlens")
+    return {n: torch.as_tensor(batch[n]) for n in names
+            if batch.get(n) is not None}
+
+
+def _vp_greedy_placed(cfg: ArchConfig, stage_params, y, devices, root):
+    """:func:`vp_greedy_tokens` with each stage's vocab slice on its own
+    device: ``stage_params[s]`` holds stage s's final_norm and head slice
+    (D, Vp/S). y (b, q, D) goes to every stage, each takes its slice's
+    max and first argmax, and the pairs meet on ``root``, where the lowest
+    tied id wins (the reference's psum over the stages)."""
+    maxes, args = [], []
+    for s, (p, dev) in enumerate(zip(stage_params, devices)):
+        x = lm.final_norm_apply(cfg, p["final_norm"], y.to(dev))
+        lg = (x @ p["head"]).float()  # (b, q, Vp / S)
+        v_s = lg.shape[-1]
+        gid = s * v_s + torch.arange(v_s, device=dev)
+        lg = lg.masked_fill(gid >= cfg.vocab_size, -1e30)
+        maxes.append(lg.amax(dim=-1).to(root))
+        args.append((lg.argmax(dim=-1) + s * v_s).to(root))
+    lmax, larg = torch.stack(maxes), torch.stack(args)  # (S, b, q)
+    gmax = lmax.amax(dim=0)
+    winner = torch.where(lmax >= gmax, larg,
+                         len(devices) * v_s).amin(dim=0)
+    return winner.to(torch.int32), gmax
+
+
+def _placed_serve(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
+                  layout, params, cache, batch, mode: str):
+    """The tick loop of :func:`pipeline_serve` on a device layout; returns
+    (tokens_out, logit_max) on the layout's root. Unit (s, slot) of
+    replica (p, d) runs on device (p, d, s): its rows of every batch entry
+    are moved there first (the kernels launch on the one device of their
+    inputs), its MoE rows route as one shard, and with FSDP each layer is
+    gathered over the data rows there."""
+    S, K = eng.n_stages, eng.n_trials
+    nc = eng.prefill_chunks if mode == "prefill" else 1
+    plan = plan_stages(cfg, S)
+    l_s = plan.layers_per_stage
+    n_pod, n_data = eng.pod_size, eng.data_size
+    dev, root = layout.device, layout.root
+    if mode == "decode" or (mode == "prefill" and nc == 1):
+        stack_mode = mode
+    else:  # appends, ragged waves and prefill chunks write at offsets
+        stack_mode = "append"
+    batch = _serve_batch(batch, mode)
+    tokens = batch["tokens"]
+    qlen, mb = tokens.shape[-1], eng.microbatch
+    reps = [(p, d) for p in range(n_pod) for d in range(n_data)]
+    units = [(p, d, s) for p, d in reps for s in range(S)]
+    rows = {u: _replica_rows(eng, batch, u[0], u[1], dev(*u)) for u in units}
+    steps = {u: torch.arange(qlen, device=dev(*u)) for u in units}
+    local = _grid(layout, lambda p, d, s: unstack_trials(params[p][d][s]))
+    layer_gather = _fsdp_gather(cfg, eng, layout, local)
+    out_shape = tokens.shape if mode == "verify" else tokens.shape[:3]
+    tok_out = torch.zeros(out_shape, dtype=torch.int32, device=root)
+    val_out = torch.zeros(out_shape, dtype=torch.float32, device=root)
+
+    def positions(u, k, m):
+        """(start (mb,), pos (mb, qlen), q_lens or None) of unit u's rows
+        of slot (k, m), on its device."""
+        r = rows[u]
+        if mode == "prefill":
+            # chunk m % nc of its request group (always 0 when nc = 1)
+            start = torch.full((r["tokens"].shape[2],), (m % nc) * qlen,
+                               dtype=torch.int32, device=dev(*u))
+        else:
+            start = r["positions"][k, m]
+        pos = start[:, None] + steps[u][None, :]
+        ql = r["qlens"][k, m] if "qlens" in r else None
+        if ql is not None:  # padded positions clamp to the last real one
+            pos = torch.minimum(pos, (start + (ql - 1).clamp(min=0))[:, None])
+        return start, pos, ql
+
+    def embed(p, d, k, m):
+        first = dev(p, d, 0)
+        if not eng.vocab_parallel:
+            _, pos, _ = positions((p, d, 0), k, m)
+            return plain_embed(cfg, eng, local[p][d][0][k]["embed"],
+                               rows[p, d, 0]["tokens"][k, m], pos,
+                               opts.compute_dtype)
+        parts = [_vp_embed_part(cfg, local[p][d][s][k]["embed"],
+                                rows[p, d, s]["tokens"][k, m],
+                                positions((p, d, s), k, m)[1], s,
+                                opts.compute_dtype).to(first)
+                 for s in range(S)]
+        return sum(parts[1:], parts[0])
+
+    def head(p, d, k, m, y, ql):
+        """The greedy head of slot (k, m) on replica (p, d)'s last-stage
+        output y: (tokens, maxima) on the root."""
+        if mode != "verify":
+            if ql is not None:
+                # a ragged row's chunk ends at its own qlens - 1
+                sel = (ql.long() - 1).clamp(0, qlen - 1)
+                y = y[torch.arange(y.shape[0], device=y.device), sel][:, None]
+            else:
+                y = y[:, -1:]
+        if eng.vocab_parallel:
+            tok, gmax = _vp_greedy_placed(
+                cfg, [local[p][d][s][k] for s in range(S)], y,
+                [dev(p, d, s) for s in range(S)], root)
+        else:
+            q = local[p][d][S - 1][k]
+            tok, gmax = vp_greedy_tokens(cfg, eng, q["final_norm"],
+                                         q["head"], y)
+        if mode != "verify":
+            tok, gmax = tok[:, 0], gmax[:, 0]
+        return tok.to(root), gmax.to(root)
+
+    def unit(x, p, d, s, k, m):
+        u = (p, d, s)
+        r = rows[u]
+        start, pos, ql = positions(u, k, m)
+        if s == 0:
+            x = embed(p, d, k, m)
+            if "frontend_embeds" in r:  # the prefill's frontend rows
+                x = lm.replace_frontend_rows(x, r["frontend_embeds"][k, m])
+        if "mrope_pos" in r:
+            pos = r["mrope_pos"][k, m]  # (3, mb, qlen)
+        elif cfg.rope == "mrope":  # decode: every stream at the depth
+            pos = pos.expand(3, pos.shape[0], qlen)
+        lo = s * l_s
+        q = local[p][d][s][k]
+        c_u = cache[p][d][s]
+        cell = (k,) if eng.paged else (k, m // nc)
+        c = {"layers": {n: v[cell] for n, v in c_u["layers"].items()},
+             "shared": None if c_u["shared"] is None else
+             {n: v[cell] for n, v in c_u["shared"].items()}}
+        y, _, _ = lm.stack_apply(
+            cfg, opts, q["layers"], x, pos=pos, mode=stack_mode, cache=c,
+            shared_params=q.get("shared"),
+            layer_mask=[lo + i < cfg.n_layers for i in range(l_s)],
+            layer_offset=lo,
+            kv_offset=None if stack_mode == "prefill" else start,
+            window=eng.window,
+            block_tables=(r["block_tables"][k, m] if eng.paged else None),
+            write_mask=r["active"][k, m] if "active" in r else None,
+            q_lens=ql, n_shards=1, layer_param_fn=layer_gather(p, d, s, k))
+        return y, ql
+
+    acts = {}  # (p, d, s) -> stage s's output of the previous tick
+    for t in range(eng.n_ticks):
+        nxt = {}
+        for s in range(S):
+            slot = t - s
+            if not 0 <= slot < eng.n_slots:
+                continue  # fill/drain bubble: masked in the reference
+            k, m = slot % K, slot // K
+            for p, d in reps:
+                x = (acts[p, d, s - 1].to(dev(p, d, s), non_blocking=True)
+                     if s else None)
+                y, ql = unit(x, p, d, s, k, m)
+                nxt[p, d, s] = y
+                if s < S - 1 or (eng.batch_replicated and (p, d) != (0, 0)):
+                    continue  # a replicated batch's rows come from (0, 0)
+                tok, gmax = head(p, d, k, m, y, ql)
+                lo = _shard(eng, p, d) or 0
+                tok_out[k, m, lo * mb:lo * mb + tok.shape[0]] = tok
+                val_out[k, m, lo * mb:lo * mb + tok.shape[0]] = gmax
+        acts = nxt
+    return tok_out, val_out
+
+
 def make_serve_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
-                    mode: str, tracer=None) -> Callable:
+                    mode: str, tracer=None, layout=None) -> Callable:
     """fn(params, cache, batch) -> (cache, tokens, logit_max) running
     :func:`pipeline_serve` in ``mode`` (prefill | decode | append | mixed |
     verify). The reference's ``with_active`` flag is implied by an
@@ -1181,7 +1495,14 @@ def make_serve_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
     block-table width) signature, as the reference does where XLA
     retraces. PyTorch runs eagerly and compiles nothing, but the event
     stream stays the reference's. With None or a disabled tracer the bare
-    step comes back."""
+    step comes back.
+
+    With ``layout`` (a ``launch.mesh.DeviceLayout`` of the engine's (pod,
+    data, model) sizes) the step takes the placed parameters and cache
+    (:func:`place_trial_params`, :func:`place_serve_cache`) and runs each
+    (stage, replica) unit on its own device (see :func:`pipeline_serve`);
+    FSDP, the pod axis and a replicated batch run there, as on the
+    reference's mesh of those sizes."""
     _check_mrope_mode(cfg, mode)
     if mode in ("mixed", "verify") and cfg.family in ("ssm", "hybrid"):
         raise ValueError("mixed-tick/verify serving is attention-family "
@@ -1191,12 +1512,16 @@ def make_serve_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
         raise ValueError(f"unknown serve mode {mode!r} (one of "
                          f"{SERVE_MODES})")
     _check_family(cfg)
-    check_runnable(eng)
+    if layout is None:
+        check_runnable(eng)
+    else:
+        check_layout(eng, layout)
     if eng.paged:
         _check_paged_support(cfg, eng)
 
     def step(params, cache, batch):
-        return pipeline_serve(cfg, opts, eng, params, cache, batch, mode)
+        return pipeline_serve(cfg, opts, eng, params, cache, batch, mode,
+                              layout=layout)
 
     if tracer is None or not tracer.enabled:
         return step
@@ -1214,29 +1539,48 @@ def make_serve_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
     return traced
 
 
-def make_slot_reset(cfg: ArchConfig, eng: EngineConfig) -> Callable:
+def make_slot_reset(cfg: ArchConfig, eng: EngineConfig,
+                    layout=None) -> Callable:
     """fn(cache, mask) zeroing the dense cache rows of recycled slots, in
     place. ``mask``: (K, cache_groups, mb_global) bool (numpy or tensor) —
     True rows are cleared before a queued request is admitted into the
     freed slot. KV rows beyond kv_len are never attended, but SSM/conv
     states are recurrent and MUST restart from zero for the next request.
     (Paged engines never call this: stale pool blocks are masked by
-    kv_len, and freed blocks return to the allocator host-side.)"""
+    kv_len, and freed blocks return to the allocator host-side.) With
+    ``layout`` the cache is placed, and each device zeroes its own rows
+    of the mask on its own strips."""
     if eng.paged:
         raise ValueError("paged caches need no slot reset (no recurrent "
                          "state; stale blocks are masked via kv_len)")
 
-    def reset(cache, mask):
-        rows = torch.as_tensor(mask).nonzero().tolist()
+    def zero(cache, rows):
         bufs = list(cache["layers"].values())
         if cache["shared"] is not None:  # the hybrid shared-site strips
             bufs += list(cache["shared"].values())
         for buf in bufs:
-            for k, g, b in rows:  # leaves (K, G, Lp | sites, mbg, ...)
+            for k, g, b in rows:  # leaves (K, G, Lp | sites, mb, ...)
                 buf[k, g, :, b].zero_()
+
+    def reset(cache, mask):
+        zero(cache, torch.as_tensor(mask).nonzero().tolist())
         return cache
 
-    return reset
+    if layout is None:
+        return reset
+    check_layout(eng, layout)
+
+    def placed_reset(cache, mask):
+        rows = torch.as_tensor(mask).nonzero().tolist()
+        mb = eng.mb_global // pool_partitions(eng)
+        for p, d in np.ndindex(*layout.devices.shape[:2]):
+            lo = (_shard(eng, p, d) or 0) * mb
+            mine = [(k, g, b - lo) for k, g, b in rows if lo <= b < lo + mb]
+            for s in range(eng.n_stages):
+                zero(cache[p][d][s], mine)
+        return cache
+
+    return placed_reset
 
 
 # ---------------------------------------------------------------------------
@@ -1254,8 +1598,8 @@ class TransferKernels:
     inject: Callable  # (cache, k, shard, local_ids, payloads) -> cache
 
 
-def make_transfer_kernels(cfg: ArchConfig, eng: EngineConfig
-                          ) -> TransferKernels:
+def make_transfer_kernels(cfg: ArchConfig, eng: EngineConfig,
+                          layout=None) -> TransferKernels:
     """Pool copy / extract / inject on the pool tensors (in place).
 
     **copy(cache, src, dst)** — dst := src for every layer, ``src``/``dst``
@@ -1264,9 +1608,13 @@ def make_transfer_kernels(cfg: ArchConfig, eng: EngineConfig
     one CPU payload (2, Lp, block_size, h_kv, hd) stacking K and V per id.
     **inject(cache, k, shard, ids, payloads)** — host → device, the inverse
     of extract (round-trips bit-exactly). Local ids are offset by the
-    shard's pool slice before indexing.
+    shard's pool slice before indexing. With ``layout`` (a placed cache)
+    each shard's pool is its own tensors, indexed with the local ids
+    as they are: see :func:`_placed_transfer_kernels`.
     """
     _check_paged_support(cfg, eng)
+    if layout is not None:
+        return _placed_transfer_kernels(eng, layout)
     per_shard = eng.n_blocks // eng.data_size
 
     def gids(shard, ids, device):
@@ -1299,6 +1647,66 @@ def make_transfer_kernels(cfg: ArchConfig, eng: EngineConfig
             vals = torch.stack([p[i] for p in payloads], dim=1)
             buf[k].index_copy_(1, gids(shard, local_ids, buf.device),
                                vals.to(buf.device, buf.dtype))
+        return cache
+
+    return TransferKernels(copy=copy, extract=extract, inject=inject)
+
+
+def _placed_transfer_kernels(eng: EngineConfig, layout) -> TransferKernels:
+    """The transfer kernels on a placed pool. **copy** runs per (k, shard)
+    on every stage device of every replica holding the shard (all of them
+    when the batch is replicated). **extract** reads the shard's blocks
+    from each stage's device (of its first holder) and joins the stages'
+    layers into one host payload (2, Lp, block_size, h_kv, hd) per id;
+    **inject** writes a payload's layers back to every holder's stage
+    devices, bit for bit."""
+    check_layout(eng, layout)
+    n_pod, n_data, n_st = layout.devices.shape
+    reps = [(p, d) for p in range(n_pod) for d in range(n_data)]
+
+    def holders(shard):
+        return [r for r in reps if _shard(eng, *r) in (None, shard)]
+
+    def ids_on(ids, buf):
+        return torch.as_tensor([int(i) for i in ids], dtype=torch.long,
+                               device=buf.device)
+
+    def copy(cache, src, dst):
+        src, dst = torch.as_tensor(src), torch.as_tensor(dst)
+        for k in range(src.shape[0]):
+            for sh in range(src.shape[1]):
+                ok = (src[k, sh] >= 0) & (dst[k, sh] >= 0)
+                if not bool(ok.any()):
+                    continue
+                gs, gd = src[k, sh][ok].tolist(), dst[k, sh][ok].tolist()
+                for p, d in holders(sh):
+                    for s in range(n_st):
+                        for buf in cache[p][d][s]["layers"].values():
+                            buf[k].index_copy_(1, ids_on(gd, buf),
+                                               buf[k].index_select(
+                                                   1, ids_on(gs, buf)))
+        return cache
+
+    def extract(cache, k, shard, local_ids):
+        p, d = holders(shard)[0]
+        kv = [torch.cat([cache[p][d][s]["layers"][n][k].index_select(
+            1, ids_on(local_ids, cache[p][d][s]["layers"][n])).cpu()
+            for s in range(n_st)]) for n in ("k", "v")]  # (Lp, n, ...)
+        return [torch.stack([kv[0][:, j], kv[1][:, j]])
+                for j in range(len(local_ids))]
+
+    def inject(cache, k, shard, local_ids, payloads):
+        for i, n in enumerate(("k", "v")):
+            vals = torch.stack([pay[i] for pay in payloads], dim=1)
+            for p, d in holders(shard):
+                lo = 0
+                for s in range(n_st):
+                    buf = cache[p][d][s]["layers"][n]
+                    l_s = buf.shape[1]
+                    buf[k].index_copy_(1, ids_on(local_ids, buf),
+                                       vals[lo:lo + l_s].to(buf.device,
+                                                            buf.dtype))
+                    lo += l_s
         return cache
 
     return TransferKernels(copy=copy, extract=extract, inject=inject)

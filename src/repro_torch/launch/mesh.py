@@ -11,10 +11,10 @@ The reference builds a (data × model) or (pod × data × model) device mesh
   inside one process (``core/pipeline.py`` without a layout);
 * a **device layout** (:class:`DeviceLayout`) adds the devices: a grid of
   ``torch.device`` indexed by (pod, data, model), on which the placed
-  train step (``core/pipeline.py`` with ``layout=``) runs stage ``s`` of
-  data replica ``(p, d)`` on device ``(p, d, s)``. One process drives the
-  whole grid. An explicit device list may repeat a device (four entries
-  of ``cuda:0`` on one card, or of ``cpu`` in the tests).
+  train and serve steps (``core/pipeline.py`` with ``layout=``) run stage
+  ``s`` of data replica ``(p, d)`` on device ``(p, d, s)``. One process
+  drives the whole grid. An explicit device list may repeat a device
+  (four entries of ``cuda:0`` on one card, or of ``cpu`` in the tests).
 
 Entry points run on CUDA unless the caller asks for the CPU, and they
 never fall back to another device silently: a layout that asks for more
@@ -162,11 +162,19 @@ def make_device_layout(n_data: int, n_model: int, multi_pod: bool = False,
                 f"devices, {have} exist; pass an explicit device list "
                 f"(which may repeat a device) to run it on fewer")
         devices = [f"cuda:{i}" for i in range(n)]
+    return layout_of(devices, (n_pod, n_data, n_model), multi_pod)
+
+
+def layout_of(devices, shape, multi_pod: bool = False) -> DeviceLayout:
+    """The (pod, data, model) layout of ``shape`` holding ``devices``
+    (strings or ``torch.device``, exactly as many, in C order); CUDA
+    entries must exist."""
     devs = [torch.device(x) for x in devices]
+    n = int(np.prod(shape))
     if len(devs) != n:
-        raise ValueError(f"a {n_pod}x{n_data}x{n_model} layout takes {n} "
+        raise ValueError(f"a {'x'.join(map(str, shape))} layout takes {n} "
                          f"devices, got {len(devs)}")
     devs = [_card(x) if x.type == "cuda" else x for x in devs]
     grid = np.empty(n, dtype=object)
     grid[:] = devs
-    return DeviceLayout(grid.reshape(n_pod, n_data, n_model), multi_pod)
+    return DeviceLayout(grid.reshape(shape), multi_pod)

@@ -44,6 +44,13 @@ or the paged KV pool, on the card by default.
         --trace-out run.json --events-out events.jsonl \\
         --metrics-out metrics.jsonl
 
+    # on a device layout: data 2 x model 2, each stage and data shard on
+    # its own device (a device may repeat: cuda:0 four times on one card)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \\
+        --paged --paged-kernel --n-data 2 --n-model 2 --slots 2 \\
+        --microbatch 1 --n-requests 8 --prompt-len 256 --gen-len 32 \\
+        --dtype bfloat16 --devices cuda:0,cuda:1,cuda:2,cuda:3
+
     # CPU smoke runs (plain PyTorch versions of the kernels, reduced config)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \\
         --smoke --paged --paged-kernel --n-model 2 --slots 2 --device cpu
@@ -59,6 +66,9 @@ or the paged KV pool, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \\
         --smoke --window 8 --slots 0 --max-slots 4 --deadline-slack 2.0 \\
         --policy deadline --n-model 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \\
+        --smoke --paged --paged-kernel --n-data 2 --n-model 2 \\
+        --devices cpu,cpu,cpu,cpu
 
 Weights are random, drawn from ``--seed``; with ``--arches K`` the gang
 co-serves K variants (trial rows of independent weights) and the trace
@@ -84,6 +94,13 @@ frontend archs (musicgen-medium, qwen2-vl-72b) are refused here, by the
 continuous engine and by ``--static`` alike, as the reference refuses
 them: they serve through ``core.pipeline.make_serve_step``'s prefill (with
 their frontend embeddings and M-RoPE positions) and decode.
+
+Without ``--devices`` every stage and data shard runs as structure on the
+one ``--device``. ``--devices`` lists the devices of a (data, model)
+layout in C order (a device may repeat): stage ``s`` of data shard ``d``
+runs on entry ``d · n_model + s``, holding its stage's weights and its
+shard's cache (``core/pipeline.py`` with ``layout=``). The tokens are
+those of the one-device run.
 """
 from __future__ import annotations
 
@@ -100,7 +117,7 @@ from repro_torch.core.partitioner import plan_stages
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import paged_attention as pa
-from repro_torch.launch.mesh import resolve_device
+from repro_torch.launch.mesh import make_device_layout, resolve_device
 from repro_torch.models.layers import kernel_options
 from repro_torch.obs import (Tracer, report, write_events, write_metrics,
                              write_perfetto)
@@ -232,8 +249,12 @@ def build_args():
                     "one metric per line) here")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="float32",
                     help="parameter, activation and KV-cache dtype")
-    ap.add_argument("--device", default="cuda",
+    ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--devices", default=None,
+                    help="comma-separated devices of a (data, model) layout "
+                    "in C order, e.g. cpu,cpu,cpu,cpu or "
+                    "cuda:0,cuda:1,cuda:2,cuda:3 (a device may repeat)")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -368,7 +389,16 @@ def main(argv=None):
     args = build_args().parse_args(argv)
     check_args(args)
     weights = parse_weights(args.arch_weights, args.arches)
-    device = resolve_device(args.device)
+    layout = None
+    if args.devices:
+        if args.device:
+            raise SystemExit("--device runs one device; a layout takes "
+                             "--devices")
+        layout = make_device_layout(args.n_data, args.n_model,
+                                    devices=args.devices.split(","))
+        device = layout.root
+    else:
+        device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if cfg.family == "mlp":
         raise SystemExit(f"{args.arch} is the paper's MLP workload: it has "
@@ -423,11 +453,15 @@ def main(argv=None):
     params = pl.init_trial_params(cfg, eng, plan_stages(cfg, eng.n_stages),
                                   gen, dtype=dtype, device=device,
                                   max_pos=max_seq)
+    where = dict(device=device)
+    if layout is not None:
+        params = pl.place_trial_params(cfg, eng, params, layout)
+        where = dict(layout=layout)
     tracer = Tracer() if args.trace_out or args.events_out else None
     pa.launches = fa.launches = ms.launches = 0
     if args.static:
         completions, stats = static_serve(cfg, eng, params, requests, opts,
-                                          device=device)
+                                          **where)
         mode = "static"
     else:
         engine = ServeEngine(cfg, eng, params, opts,
@@ -437,7 +471,7 @@ def main(argv=None):
                              fused=args.fused_admission,
                              spec_gamma=args.spec_gamma if args.spec_draft
                              else 0, spec_pairs=spec_pairs, tracer=tracer,
-                             device=device)
+                             **where)
         completions = engine.run(requests)
         stats = engine.stats
         mode = ("continuous/" + ("paged" if args.paged else "dense")
@@ -452,6 +486,8 @@ def main(argv=None):
             mode += f" x{args.arches}-arch gang"
     if args.window:
         mode += f" window={args.window}"
+    if layout is not None:
+        mode += " on " + ",".join(str(d) for d in layout.devices.flat)
     s = stats.summary()
     lines += report.render_completions(completions,
                                        multi_arch=args.arches > 1)

@@ -11,8 +11,10 @@ global batch shrinks with the data axis, and the gradients after it are
 those of a smaller batch (``core/scheduler.py::replan_after_failure``).
 
 :func:`rebuild_mesh` returns the logical axis sizes the reference's
-``Mesh`` would have, not a device layout (``launch.mesh.DeviceLayout``):
-rebuilding a layout from the surviving devices is not ported yet.
+``Mesh`` would have; :func:`rebuild_layout` builds the device layout
+(``launch.mesh.DeviceLayout``) of the surviving devices, on which the
+placed train and serve steps run (re-place a gathered tree onto it with
+``core.pipeline.place_trial_params``).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Sequence, Union
 
 from repro_torch.core import scheduler as sched
 from repro_torch.core.pipeline import EngineConfig
+from repro_torch.launch.mesh import DeviceLayout, layout_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +73,22 @@ def rebuild_mesh(devices: Union[int, Sequence], health: MeshHealth,
     if multi_pod:
         return {"pod": n_pods, "data": n_data, "model": n_stages}
     return {"data": n_data, "model": n_stages}
+
+
+def rebuild_layout(devices: Sequence, health: MeshHealth, n_stages: int,
+                   multi_pod: bool) -> DeviceLayout:
+    """The reference's ``rebuild_mesh`` on ``torch.device``s: the largest
+    healthy box layout, filled with the first ``pods · data · n_stages``
+    of the surviving ``devices`` (strings or ``torch.device``) in the
+    reference's reshape order (C order over pod, data, model; a size-1
+    pod axis without ``multi_pod``). Raises where too few are given."""
+    n_data = health.usable_data_rows
+    n_pods = health.usable_pods if multi_pod else 1
+    need = n_pods * n_data * n_stages
+    if len(devices) < need:
+        raise RuntimeError(f"need {need} devices, have {len(devices)}")
+    return layout_of(list(devices)[:need], (n_pods, n_data, n_stages),
+                     multi_pod)
 
 
 def shrink_engine(eng: EngineConfig, health: MeshHealth) -> EngineConfig:

@@ -305,7 +305,12 @@ class ServeEngine:
     admission chunk count and ``policy`` the per-arch admission order
     (fcfs / sjf / deadline); ``eng.paged`` picks the cache layout. The
     caches live on ``device`` (``cuda`` unless the caller asks for
-    ``"cpu"``), where ``params`` must live too. ``prefix_cache``,
+    ``"cpu"``), where ``params`` must live too; with ``layout`` (a
+    ``launch.mesh.DeviceLayout`` of the engine's (pod, data, model) sizes)
+    ``params`` is the placed tree of ``pipeline.place_trial_params``, the
+    cache is built placed, each (stage, replica) unit runs on its own
+    device, and the allocator keeps one partition per (trial, data / pod
+    shard). ``prefix_cache``,
     ``host_blocks`` / ``spill``, ``overcommit``, ``fused`` and
     ``spec_gamma`` / ``spec_pairs`` turn on the paged serve features (see
     the module docstring); ``host_blocks``, when given, overrides
@@ -323,7 +328,7 @@ class ServeEngine:
                  host_blocks: Optional[int] = None, spill: bool = True,
                  fused: bool = False, spec_gamma: int = 0,
                  spec_pairs: Optional[dict] = None, tracer=None,
-                 device=None):
+                 device=None, layout=None):
         if cfg.rope == "mrope" or cfg.frontend is not None:
             raise ValueError("continuous batching supports text-only archs; "
                              "use the static path for mrope/frontend models")
@@ -375,9 +380,15 @@ class ServeEngine:
             raise ValueError("overcommit > 1.0 preempts paged block "
                              "commitments; dense strips cannot be retracted "
                              "— enable eng.paged")
+        if layout is not None and device is not None:
+            raise ValueError("a device layout names its own devices; pass "
+                             "layout= or device=, not both")
         self.cfg = cfg
         self.opts = opts
-        self.device = resolve_device(device)
+        # host-side reads (tokens, the call's batch grids) go through the
+        # layout's root; the placed steps move each unit's rows on
+        self.device = layout.root if layout is not None else \
+            resolve_device(device)
         # NULL_TRACER when off: emission sites guard with `if tr.enabled:`
         self.trace = resolve(tracer)
         _tr = self.trace if self.trace.enabled else None
@@ -389,27 +400,32 @@ class ServeEngine:
         self.params = params
         self.mb_global = self.eng.mb_global
         self.decode_step = pl.make_serve_step(cfg, self.opts, self.eng,
-                                              "decode", tracer=_tr)
+                                              "decode", tracer=_tr,
+                                              layout=layout)
         self.append_step = pl.make_serve_step(cfg, self.opts, self.eng,
-                                              "append", tracer=_tr)
+                                              "append", tracer=_tr,
+                                              layout=layout)
         self.fused = bool(fused)
         self.mixed_step = (pl.make_serve_step(cfg, self.opts, self.eng,
-                                              "mixed", tracer=_tr)
+                                              "mixed", tracer=_tr,
+                                              layout=layout)
                            if self.fused else None)
         # gang speculation: each target trial row drafts on its peer row
         self.spec_gamma = int(spec_gamma)
         self.spec_pairs = dict(spec_pairs) if self.spec_gamma > 0 else {}
         self.spec_stats = SpecStats()
         self.verify_step = (pl.make_serve_step(cfg, self.opts, self.eng,
-                                               "verify", tracer=_tr)
+                                               "verify", tracer=_tr,
+                                               layout=layout)
                             if self.spec_gamma > 0 else None)
         self.paged = bool(self.eng.paged)
         self.allocator = self.store = self.transfer = self.reset_fn = None
         if self.paged:
-            # one pool partition per (trial, data shard): rows allocate only
-            # from the partition their (k, shard) owns (tables carry local
-            # ids); no slot reset — stale blocks are masked via kv_len
-            n_parts = self.eng.data_size
+            # one pool partition per (trial, data / pod shard): rows
+            # allocate only from the partition their (k, shard) owns
+            # (tables carry local ids); no slot reset — stale blocks are
+            # masked via kv_len
+            n_parts = pl.pool_partitions(self.eng)
             self.allocator = BlockAllocator(
                 self.eng.n_blocks * self.n_arches, self.eng.block_size,
                 n_partitions=self.n_arches * n_parts)
@@ -419,19 +435,21 @@ class ServeEngine:
             # through the transfer engine, batched into one flush per call
             self.transfer = TransferEngine(
                 self.n_arches, n_parts,
-                kernels=pl.make_transfer_kernels(cfg, self.eng))
+                kernels=pl.make_transfer_kernels(cfg, self.eng,
+                                                 layout=layout))
             self.transfer.bind(lambda: self.cache, self._set_cache)
             hb = self.eng.host_blocks if host_blocks is None else host_blocks
             self.store = BlockStore(self.allocator, host_blocks=hb,
                                     spill=spill, transfer=self.transfer)
             self.store.trace = self.trace
         else:
-            self.reset_fn = pl.make_slot_reset(cfg, self.eng)
+            self.reset_fn = pl.make_slot_reset(cfg, self.eng, layout=layout)
         self.prefix_cache = None
         if prefix_cache:
             self.prefix_cache = PrefixCache(self.store)
             self.prefix_cache.trace = self.trace
-        self.cache = pl.serve_cache_struct(cfg, self.eng, device=self.device)
+        self.cache = pl.serve_cache_struct(cfg, self.eng, device=self.device,
+                                           layout=layout)
         self.batcher = Batcher(self.eng.n_microbatches, self.mb_global,
                                self.n_chunks, self.eng.max_seq,
                                n_trials=self.n_arches,
@@ -1166,7 +1184,8 @@ class ServeEngine:
 
 
 def static_serve(cfg: ArchConfig, eng: pl.EngineConfig, params, requests,
-                 opts: Optional[ModelOptions] = None, device=None):
+                 opts: Optional[ModelOptions] = None, device=None,
+                 layout=None):
     """Lockstep static batching over the same slot grid, for comparison.
 
     Single-arch (trial row 0 of ``params`` only: the lockstep baseline has
@@ -1175,8 +1194,9 @@ def static_serve(cfg: ArchConfig, eng: pl.EngineConfig, params, requests,
     share one length — the static path's restriction), then decodes until
     EVERY request of the group hits its budget; early finishers idle their
     slots. Arrival times are ignored (a clairvoyant static scheduler, which
-    flatters the baseline). ``device`` as :class:`ServeEngine`'s. Returns
-    (completions, ServeStats)."""
+    flatters the baseline). ``device`` and ``layout`` (with the placed
+    ``params``) as :class:`ServeEngine`'s. Returns (completions,
+    ServeStats)."""
     if cfg.rope == "mrope" or cfg.frontend is not None:
         # the reference's static path feeds its prefill tokens only, while
         # its prefill step expects frontend_embeds / mrope_pos: it fails
@@ -1187,15 +1207,18 @@ def static_serve(cfg: ArchConfig, eng: pl.EngineConfig, params, requests,
             f"embeddings / M-RoPE positions in its prefill — serve it "
             f"through pipeline.make_serve_step('prefill') and 'decode'")
     opts = opts or ModelOptions()
-    dev = resolve_device(device)
+    if layout is not None and device is not None:
+        raise ValueError("a device layout names its own devices; pass "
+                         "layout= or device=, not both")
+    dev = layout.root if layout is not None else resolve_device(device)
     # the lockstep baseline keeps dense per-slot strips (it IS the
     # worst-case reservation the paged engine is measured against)
     eng = dataclasses.replace(eng, n_trials=1, prefill_chunks=1, paged=False,
                               n_blocks=0)
     mb_global = eng.mb_global
     n_cells = eng.n_microbatches * mb_global
-    prefill = pl.make_serve_step(cfg, opts, eng, "prefill")
-    decode = pl.make_serve_step(cfg, opts, eng, "decode")
+    prefill = pl.make_serve_step(cfg, opts, eng, "prefill", layout=layout)
+    decode = pl.make_serve_step(cfg, opts, eng, "decode", layout=layout)
     grid = (1, eng.n_microbatches, mb_global)
     stats = ServeStats()
     completions = []
@@ -1211,7 +1234,7 @@ def static_serve(cfg: ArchConfig, eng: pl.EngineConfig, params, requests,
         tokens = np.zeros(grid + (plen,), np.int32)
         for i, r in enumerate(group):
             tokens[0, i // mb_global, i % mb_global] = r.prompt
-        cache = pl.serve_cache_struct(cfg, eng, device=dev)
+        cache = pl.serve_cache_struct(cfg, eng, device=dev, layout=layout)
         stats.ticks += 1
         admitted_tick = stats.ticks  # the group's prefill tick
         stats.calls += 1
