@@ -72,6 +72,7 @@ from repro_torch.core.partitioner import StagePlan, plan_stages
 from repro_torch.models import blocks as B
 from repro_torch.models import lm
 from repro_torch.models.layers import ModelOptions
+from repro_torch.obs import tracer as obs_tracer
 from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
 
@@ -480,6 +481,31 @@ def unstack_trials(params):
     return out
 
 
+def _unit_span(eng: EngineConfig, s: int, k: int, m: int, device):
+    """The ``train.unit`` span of stage ``s`` on slot (trial ``k``,
+    microbatch ``m``) on ``device``, under the current tracer (a no-op
+    without one)."""
+    tr = obs_tracer.current()
+    if not tr.enabled:
+        return obs_tracer.NO_SPAN
+    return tr.span("train.unit", tr.train_pass,
+                   t=s + m * eng.n_trials + k, s=s, k=k, m=m,
+                   dev=str(device))
+
+
+def _hop(x, dst):
+    """An activation's ``.to`` between stages of the placed step: a
+    ``train.hop`` span and its bytes counted under the current tracer."""
+    tr = obs_tracer.current()
+    if not tr.enabled:
+        return x.to(dst, non_blocking=True)
+    nbytes = x.numel() * x.element_size()
+    with tr.span("train.hop", src=str(x.device), dst=str(dst),
+                 bytes=nbytes):
+        tr.count("hop_bytes", nbytes)
+        return x.to(dst, non_blocking=True)
+
+
 def _train_loss(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
                 trials, batch):
     """The tick loop of :func:`pipeline_train_loss` over per-trial
@@ -505,26 +531,27 @@ def _train_loss(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
     def unit(x, s, k, m):
         """One (stage, slot) pair: embed at stage 0, the stage's layers,
         the loss at the last stage."""
-        p = trials[k]
-        if s == 0:
-            x = embed(cfg, eng, p["embed"], tokens[k, m], pos,
-                      opts.compute_dtype)
-            if fe is not None:
-                x = lm.replace_frontend_rows(x, fe[k, m])
-        lo = s * l_s
-        # a hybrid trial's one shared block serves every stage's sites: its
-        # gradients from all stages add up in the one backward() (the
-        # reference's psum over the stage axis)
-        x, _, aux = lm.stack_apply(
-            cfg, opts, p["layers"][lo:lo + l_s], x,
-            pos=pos if mrope is None else mrope[k, m], mode="train",
-            shared_params=p.get("shared"),
-            layer_mask=[lo + i < cfg.n_layers for i in range(l_s)],
-            layer_offset=lo, n_shards=eng.data_size)
-        if s == S - 1:
-            return loss_fn(cfg, eng, p["final_norm"], p["head"], x,
-                           labels[k, m]), aux
-        return x, aux
+        with _unit_span(eng, s, k, m, tokens.device):
+            p = trials[k]
+            if s == 0:
+                x = embed(cfg, eng, p["embed"], tokens[k, m], pos,
+                          opts.compute_dtype)
+                if fe is not None:
+                    x = lm.replace_frontend_rows(x, fe[k, m])
+            lo = s * l_s
+            # a hybrid trial's one shared block serves every stage's sites:
+            # its gradients from all stages add up in the one backward()
+            # (the reference's psum over the stage axis)
+            x, _, aux = lm.stack_apply(
+                cfg, opts, p["layers"][lo:lo + l_s], x,
+                pos=pos if mrope is None else mrope[k, m], mode="train",
+                shared_params=p.get("shared"),
+                layer_mask=[lo + i < cfg.n_layers for i in range(l_s)],
+                layer_offset=lo, n_shards=eng.data_size)
+            if s == S - 1:
+                return loss_fn(cfg, eng, p["final_norm"], p["head"], x,
+                               labels[k, m]), aux
+            return x, aux
 
     # the reference's tick-level remat: each (stage, slot) pair keeps only
     # its input and is recomputed in backward
@@ -756,23 +783,26 @@ def _placed_train_loss(cfg: ArchConfig, opts: ModelOptions,
             [dev(p, d, s) for s in range(S)])
 
     def unit(x, p, d, s, k, m):
-        here = rows[p, d, s]
-        if s == 0:
-            x = embed(p, d, k, m)
-            if "frontend_embeds" in here:
-                x = lm.replace_frontend_rows(x, here["frontend_embeds"][k, m])
-        lo = s * l_s
-        q = local[p][d][s][k]
-        x, _, aux = lm.stack_apply(
-            cfg, opts, q["layers"], x,
-            pos=here["mrope_pos"][k, m] if "mrope_pos" in here
-            else pos[p, d, s], mode="train", shared_params=q.get("shared"),
-            layer_mask=[lo + i < cfg.n_layers for i in range(l_s)],
-            layer_offset=lo, n_shards=1,
-            layer_param_fn=layer_gather(p, d, s, k))
-        if s == S - 1:
-            return loss(p, d, k, m, x), aux
-        return x, aux
+        with _unit_span(eng, s, k, m, dev(p, d, s)):
+            here = rows[p, d, s]
+            if s == 0:
+                x = embed(p, d, k, m)
+                if "frontend_embeds" in here:
+                    x = lm.replace_frontend_rows(
+                        x, here["frontend_embeds"][k, m])
+            lo = s * l_s
+            q = local[p][d][s][k]
+            x, _, aux = lm.stack_apply(
+                cfg, opts, q["layers"], x,
+                pos=here["mrope_pos"][k, m] if "mrope_pos" in here
+                else pos[p, d, s], mode="train",
+                shared_params=q.get("shared"),
+                layer_mask=[lo + i < cfg.n_layers for i in range(l_s)],
+                layer_offset=lo, n_shards=1,
+                layer_param_fn=layer_gather(p, d, s, k))
+            if s == S - 1:
+                return loss(p, d, k, m, x), aux
+            return x, aux
 
     remat = opts.remat and torch.is_grad_enabled()
     reps = [(p, d) for p in range(n_pod) for d in range(n_data)]
@@ -787,8 +817,7 @@ def _placed_train_loss(cfg: ArchConfig, opts: ModelOptions,
                 continue  # fill/drain bubble: masked in the reference
             k, m = slot % K, slot // K
             for p, d in reps:
-                x = (acts[p, d, s - 1].to(dev(p, d, s), non_blocking=True)
-                     if s else None)
+                x = _hop(acts[p, d, s - 1], dev(p, d, s)) if s else None
                 out, aux = (checkpoint(unit, x, p, d, s, k, m,
                                        use_reentrant=False,
                                        preserve_rng_state=False)
@@ -848,45 +877,73 @@ def reduce_placed_grads(cfg: ArchConfig, eng: EngineConfig, layout, grads):
     return grads, torch.sqrt(sq)
 
 
+def _traced(step_fn, tracer):
+    """``step_fn(tr, *args)`` as fn(*args) under ``tracer`` (None: the
+    disabled one): the current tracer for the call, host syncs counted
+    while it is enabled, the ``train.step`` span around the call."""
+    tr = obs_tracer.resolve(tracer)
+
+    def traced(*args):
+        with obs_tracer.using(tr), tr.watch_syncs(), tr.span("train.step"):
+            return step_fn(tr, *args)
+
+    return traced
+
+
+def _zeroed_grads(bufs: dict, params):
+    """The gradient buffer (allocated at the first call), zeroed."""
+    if "grads" not in bufs:
+        bufs["grads"] = tree_map(torch.zeros_like, params)
+    grads = bufs["grads"]
+    for g in tree_leaves(grads):
+        g.zero_()
+    return grads
+
+
 def _make_placed_train_step(cfg: ArchConfig, opts: ModelOptions,
-                            eng: EngineConfig, optimizer, layout) -> Callable:
+                            eng: EngineConfig, optimizer, layout,
+                            tracer) -> Callable:
     """:func:`make_train_step` on a device layout (see there)."""
     check_layout(eng, layout)
     bufs = {}
 
-    def step_fn(params, opt_state, batch, hparams, step):
-        if "grads" not in bufs:
-            bufs["grads"] = tree_map(torch.zeros_like, params)
-        grads = bufs["grads"]
-        for g in tree_leaves(grads):
-            g.zero_()
-        batch = _train_batch(batch)
-        local = _grid(layout, lambda p, d, s: _grad_leaves(
-            params[p][d][s], grads[p][d][s]))
-        losses, auxes = _placed_train_loss(cfg, opts, eng, layout, local,
-                                           batch)
-        # the objective over the dp replicas: the sum of their local
-        # objectives divided by the dp degree (the reference's)
-        total = 0
-        for loss_vec, aux_vec in zip(losses, auxes):
-            local_total = loss_vec.sum()
-            if cfg.moe is not None:
-                local_total = local_total \
-                    + cfg.moe.load_balance_coef * aux_vec.sum()
-            total = total + local_total.to(layout.root)
-        (total / eng.dp_degree).backward()
-        grads, gnorm = reduce_placed_grads(cfg, eng, layout, grads)
-        params, opt_state = optimizer.update(params, grads, opt_state,
-                                             hparams, step, grad_norm=gnorm)
-        loss = _replica_mean(layout, [v.detach() for v in losses])
-        return params, opt_state, {"loss": loss.cpu().numpy(),
-                                   "grad_norm": gnorm.cpu().numpy()}
+    def step_fn(tr, params, opt_state, batch, hparams, step):
+        with tr.span("train.zero_grads"):
+            grads = _zeroed_grads(bufs, params)
+        with tr.span("train.batch"):
+            batch = _train_batch(batch)
+        with tr.span("train.forward"):
+            local = _grid(layout, lambda p, d, s: _grad_leaves(
+                params[p][d][s], grads[p][d][s]))
+            losses, auxes = _placed_train_loss(cfg, opts, eng, layout,
+                                               local, batch)
+            # the objective over the dp replicas: the sum of their local
+            # objectives divided by the dp degree (the reference's)
+            total = 0
+            for loss_vec, aux_vec in zip(losses, auxes):
+                local_total = loss_vec.sum()
+                if cfg.moe is not None:
+                    local_total = local_total \
+                        + cfg.moe.load_balance_coef * aux_vec.sum()
+                total = total + local_total.to(layout.root)
+        with tr.span("train.backward"):
+            (total / eng.dp_degree).backward()
+        with tr.span("train.reduce_grads"):
+            grads, gnorm = reduce_placed_grads(cfg, eng, layout, grads)
+        with tr.span("train.optimizer"):
+            params, opt_state = optimizer.update(
+                params, grads, opt_state, hparams, step, grad_norm=gnorm)
+        with tr.span("train.readback"):
+            loss = _replica_mean(layout, [v.detach() for v in losses])
+            met = {"loss": loss.cpu().numpy(),
+                   "grad_norm": gnorm.cpu().numpy()}
+        return params, opt_state, met
 
-    return step_fn
+    return _traced(step_fn, tracer)
 
 
 def make_train_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
-                    optimizer, layout=None) -> Callable:
+                    optimizer, layout=None, tracer=None) -> Callable:
     """The multi-trial pipelined train step.
 
     Returns fn(params, opt_state, batch, hparams, step) -> (params,
@@ -912,36 +969,47 @@ def make_train_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
     summed over replicas (:func:`reduce_placed_grads`), and
     ``metrics["loss"]`` is the mean over replicas, as the reference's
     ``make_train_step`` on a mesh of those sizes.
+
+    ``tracer`` (a ``repro_torch.obs.Tracer``, checked at each call, so it
+    may be switched on and off between calls): while it is enabled each
+    call emits the training spans and counters of ``obs.tracer`` (step
+    phases, units and layers by pass, placed hops, host syncs) and their
+    ``repro.train.*`` profiler ranges. None or a disabled tracer changes
+    nothing the step computes.
     """
     if layout is not None:
-        return _make_placed_train_step(cfg, opts, eng, optimizer, layout)
+        return _make_placed_train_step(cfg, opts, eng, optimizer, layout,
+                                       tracer)
     check_runnable(eng)
     bufs = {}
 
-    def step_fn(params, opt_state, batch, hparams, step):
-        if "grads" not in bufs:
-            bufs["grads"] = tree_map(torch.zeros_like, params)
-        grads = bufs["grads"]
-        for g in tree_leaves(grads):
-            g.zero_()
-        batch = _train_batch(batch, params["embed"]["tok"].device)
-        loss_vec, aux_vec = _train_loss(cfg, opts, eng,
-                                        _grad_leaves(params, grads), batch)
-        total = loss_vec.sum()
-        if cfg.moe is not None:
-            total = total + cfg.moe.load_balance_coef * aux_vec.sum()
-        total.backward()
-        grads, gnorm = reduce_grads(cfg, eng, grads)
-        params, opt_state = optimizer.update(params, grads, opt_state,
-                                             hparams, step, grad_norm=gnorm)
-        # (on ``meta`` — the dry-run's counting pass — there is nothing to
-        # read back: the metrics stay tensors)
-        host = (lambda t: t) if gnorm.is_meta else \
-            (lambda t: t.detach().cpu().numpy())
-        return params, opt_state, {"loss": host(loss_vec),
-                                   "grad_norm": host(gnorm)}
+    def step_fn(tr, params, opt_state, batch, hparams, step):
+        with tr.span("train.zero_grads"):
+            grads = _zeroed_grads(bufs, params)
+        with tr.span("train.batch"):
+            batch = _train_batch(batch, params["embed"]["tok"].device)
+        with tr.span("train.forward"):
+            loss_vec, aux_vec = _train_loss(
+                cfg, opts, eng, _grad_leaves(params, grads), batch)
+            total = loss_vec.sum()
+            if cfg.moe is not None:
+                total = total + cfg.moe.load_balance_coef * aux_vec.sum()
+        with tr.span("train.backward"):
+            total.backward()
+        with tr.span("train.reduce_grads"):
+            grads, gnorm = reduce_grads(cfg, eng, grads)
+        with tr.span("train.optimizer"):
+            params, opt_state = optimizer.update(
+                params, grads, opt_state, hparams, step, grad_norm=gnorm)
+        with tr.span("train.readback"):
+            # (on ``meta`` — the dry-run's counting pass — there is
+            # nothing to read back: the metrics stay tensors)
+            host = (lambda t: t) if gnorm.is_meta else \
+                (lambda t: t.detach().cpu().numpy())
+            met = {"loss": host(loss_vec), "grad_norm": host(gnorm)}
+        return params, opt_state, met
 
-    return step_fn
+    return _traced(step_fn, tracer)
 
 
 # ---------------------------------------------------------------------------

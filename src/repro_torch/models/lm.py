@@ -27,6 +27,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ModelOptions
+from repro_torch.obs import tracer as obs_tracer
 from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
 
@@ -331,12 +332,16 @@ def stack_apply(cfg: ArchConfig, opts: ModelOptions, layer_params, x, *,
     the rest. Returns (y, cache, aux): aux is the sum of the real layers'
     MoE load-balance terms (a 0-d fp32 tensor, zero for the other
     families); cache leaves are updated in place.
+    In train mode under the train step's enabled tracer
+    (``obs.tracer.current()``) each real layer's run is a ``train.layer``
+    span, again at each recompute.
     """
     n_local = len(layer_params)
     if layer_mask is None:
         layer_mask = [True] * n_local
     block = B.block_fn_for(cfg)
     remat = mode == "train" and opts.remat
+    tr = obs_tracer.current() if mode == "train" else obs_tracer.NULL_TRACER
     flags, slots = shared_site_flags(cfg, layer_offset, n_local)
     sh_cache = None if cache is None else cache["shared"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -350,19 +355,22 @@ def stack_apply(cfg: ArchConfig, opts: ModelOptions, layer_params, x, *,
                 if use_sh and sh_cache is not None else None)
 
         def run(x, i=i, p_i=p_i, c_i=c_i, use_sh=use_sh, sc_i=sc_i):
-            if layer_param_fn is not None:
-                p_i = layer_param_fn(i, p_i)
-            y, _, aux_i = block(cfg, opts, p_i, x, pos=pos, cache=c_i,
-                                kv_offset=kv_offset, mode=mode,
-                                window=window, block_tables=block_tables,
-                                write_mask=write_mask, q_lens=q_lens,
-                                n_shards=n_shards)
-            if use_sh:
-                y = B.shared_attn_block(
-                    cfg, opts, shared_params, y, pos=pos, cache=sc_i,
-                    kv_offset=kv_offset, mode=mode, window=window,
-                    write_mask=write_mask)[0]
-            return y, aux_i
+            with (tr.span("train.layer", tr.train_pass,
+                          layer=layer_offset + i, dev=str(x.device))
+                  if tr.enabled else obs_tracer.NO_SPAN):
+                if layer_param_fn is not None:
+                    p_i = layer_param_fn(i, p_i)
+                y, _, aux_i = block(cfg, opts, p_i, x, pos=pos, cache=c_i,
+                                    kv_offset=kv_offset, mode=mode,
+                                    window=window, block_tables=block_tables,
+                                    write_mask=write_mask, q_lens=q_lens,
+                                    n_shards=n_shards)
+                if use_sh:
+                    y = B.shared_attn_block(
+                        cfg, opts, shared_params, y, pos=pos, cache=sc_i,
+                        kv_offset=kv_offset, mode=mode, window=window,
+                        write_mask=write_mask)[0]
+                return y, aux_i
 
         x, aux_i = (checkpoint(run, x, use_reentrant=False,
                                preserve_rng_state=False)

@@ -7,6 +7,6 @@ from repro_torch.obs.export import (  # noqa: F401
 from repro_torch.obs.metrics import (  # noqa: F401
     DEFAULT_RESERVOIR_CAP, Counter, Gauge, MetricRegistry, Reservoir)
 from repro_torch.obs.tracer import (  # noqa: F401
-    NULL_TRACER, NullTracer, Tracer, resolve)
+    NO_SPAN, NULL_TRACER, NullTracer, Tracer, current, resolve, using)
 from repro_torch.obs.validate import (  # noqa: F401
     TraceInvariantError, validate_spans)

@@ -22,6 +22,11 @@ about utilization — as tracks you can see idle gaps on:
   signature (mode × token width × table bucket).
 * **search** (pid 5) — ``span_begin``/``span_end`` pairs (hydra gangs and
   successive-halving rungs) as wall-clock duration slices.
+* **train** (pid 6, only when the events hold ``train.*`` spans) — the
+  train step's spans as wall-clock slices: the step and its phases on a
+  ``step`` track, and one track per card (the span's ``dev``, a hop's
+  ``dst``) for the (stage, slot) units and layers, named with their pass
+  (``train.layer:recompute``), and the placed step's hops.
 
 Engine events are timestamped in *ticks* (1 tick rendered as
 ``TICK_US`` µs — the deterministic scheduling unit); search spans are
@@ -35,6 +40,7 @@ import json
 TICK_US = 1000  # one engine round rendered as 1ms of trace time
 
 _PID_CELLS, _PID_POOL, _PID_QUEUES, _PID_COMPILE, _PID_SEARCH = 1, 2, 3, 4, 5
+_PID_TRAIN = 6
 
 # per-request instant markers rendered on the owning cell's track
 _CELL_INSTANTS = ("first_token", "retract", "restore", "rollback",
@@ -114,6 +120,8 @@ def to_chrome_trace(events) -> dict:
     cell_tids: dict = {}  # (k, m, b) -> tid
     open_res: dict = {}  # rid -> (cell, start_tick, kind)
     span_stack: dict = {}  # name -> [start events]
+    train_stack: dict = {}  # (name, track) -> [start events]
+    train_tids: dict = {}  # track -> tid
     last_tick = 0
     out.append(_meta(_PID_CELLS, "serve cells"))
     out.append(_meta(_PID_POOL, "pool"))
@@ -129,6 +137,16 @@ def to_chrome_trace(events) -> dict:
             out.append(_meta(_PID_CELLS,
                              f"cell k{key[0]} m{key[1]} b{key[2]}", tid))
         return tid
+
+    def train_track(ev):
+        track = ev.get("dev") or ev.get("dst") or "step"
+        tid = train_tids.get(track)
+        if tid is None:
+            if not train_tids:
+                out.append(_meta(_PID_TRAIN, "train"))
+            tid = train_tids[track] = len(train_tids)
+            out.append(_meta(_PID_TRAIN, track, tid))
+        return track, tid
 
     def close_residency(rid, end_tick, how):
         cell, start, kind = open_res.pop(rid)
@@ -194,6 +212,21 @@ def to_chrome_trace(events) -> dict:
             out.append(_instant(_PID_COMPILE, 0,
                                 int(ev.get("wall", 0.0) * 1e6),
                                 f"compile {ev.get('mode', '?')}", _args(ev)))
+        elif name in ("span_begin", "span_end") and str(
+                ev.get("name", "")).startswith("train."):
+            track, tid = train_track(ev)
+            stack = train_stack.setdefault((ev["name"], track), [])
+            if name == "span_begin":
+                stack.append(ev)
+            elif stack:
+                start = stack.pop()
+                ts0 = int(start.get("wall", 0.0) * 1e6)
+                dur = max(int(ev.get("wall", 0.0) * 1e6) - ts0, 1)
+                label = start["name"] + (f":{start['pass']}"
+                                         if start.get("pass") else "")
+                out.append(_slice(_PID_TRAIN, tid, ts0, dur, label,
+                                  _args(start, drop=("ev", "tick", "wall",
+                                                     "name", "pass"))))
         elif name == "span_begin":
             span_stack.setdefault(ev.get("name", "span"), []).append(ev)
         elif name == "span_end":
