@@ -39,10 +39,21 @@ line.
    cases (ragged sq
    33 with hq = hkv, window 24, kv_offset 32 with sq 16 / sk 48) plus sq
    100 (not a multiple of the bf16 tile's 64 rows) and a head_dim 64 case
-   with kv_offset 64, fp32 (tol 2e-5) and bf16 (tol 2e-2); the autograd
-   op's q/k/v gradients against autograd of the plain version; times as
-   phase 2, beside ``F.scaled_dot_product_attention`` (timed as a
-   yardstick only).
+   with kv_offset 64, bert-large's training call (b 8, seq 512, 16 heads
+   on 16, hd 64, non-causal) and rows with no visible key (kv_offset -8,
+   window 8), fp32 (tol 2e-5) and bf16 (tol 2e-2); the autograd op's
+   q/k/v gradients against autograd of the plain version; K1's backward
+   kernels (``kernels/attention_bwd.py``) at every case against the plain
+   backward (autograd through ``chunked_attention``) in fp32 on the same
+   values, each gradient within the tolerance of its largest entry; times
+   as phase 2, beside ``F.scaled_dot_product_attention`` and its backward
+   (timed as yardsticks only), the backward's time by kernel beside the
+   bound of its five products and the plain backward's time. Then one
+   profiled train step (full-width chatglm3-6b at 2 fp32 layers, K 2, M
+   2, S 2, seq 512, remat): the card's ``flash_attention`` records equal
+   K1's forward launches, and the backward kernels' calls equal the
+   step's K1 backward calls (the tracer's ``k1_backward``), one per
+   (trial, microbatch, layer).
 4. Serving exactness: chatglm3-6b at full width, depth cut to 2 layers,
    fp32 weights and pool, 2 stages, 2 data shards: every request's greedy
    tokens from the paged ServeEngine (kernel path) equal the oracle.
@@ -241,10 +252,10 @@ line.
    full-width fp32 layers, K 2, M 5, S 2, seq 2048, remat) counted on
    the card with K1 on and on ``meta`` with the plain path: the FLOPs
    agree exactly once the attention terms are taken out (K1's forward
-   over the causal pairs and its chunked backward, against the plain
+   and its backward kernels over the causal pairs, against the plain
    path's chunked forward and backward over every score block), and a
-   count that misses K1's forward fails; the counted FLOPs beside the
-   model FLOPs and 6·N·D. (c) falcon-mamba-7b ``decode_32k`` at its
+   count that misses K1's forward, or a backward call, fails; the
+   counted FLOPs beside the model FLOPs and 6·N·D. (c) falcon-mamba-7b ``decode_32k`` at its
    published shape (64 layers, bf16, 128 rows, cache length 32768)
    allocated and run for one decode step through ``make_serve_step``
    with the launcher's kernel options: the measured peak memory beside
@@ -528,25 +539,29 @@ def phase2(pa, dev, flush, card):
 # Phase 3: the flash-attention kernel vs its plain version
 # ---------------------------------------------------------------------------
 
-# name, b, sq, sk, hq, hkv, hd, causal, window, kv_offset; the first four
+# name, b, sq, sk, hq, hkv, hd, causal, window, kv_offset; the first five
 # are timed: the training path's shape and phase 13's static prefill (b 2
 # rows a slot, 512-token prompts), then the same for zamba2-7b's shared
-# block (MHA, 32 heads on 32, head_dim 112; phase 15)
+# block (MHA, 32 heads on 32, head_dim 112; phase 15), then bert-large's
+# training call (b 8 rows a slot, non-causal); "masked_rows" has query
+# rows 0-7 with no visible key (a zero output and gradient)
 FLASH_CASES = [
     ("train2048", 1, 2048, 2048, HQ, HKV, HD, True, 0, 0),
     ("serve_prefill512", 2, 512, 512, HQ, HKV, HD, True, 0, 0),
     ("zamba2_train2048_hd112", 1, 2048, 2048, 32, 32, 112, True, 0, 0),
     ("zamba2_prefill512_hd112", 2, 512, 512, 32, 32, 112, True, 0, 0),
+    ("bert_train512", 8, 512, 512, 16, 16, 64, False, 0, 0),
     ("ragged_sq33_mha", 2, 33, 33, 4, 4, 32, True, 0, 0),
     ("window24", 1, 128, 128, 8, 2, 16, True, 24, 0),
     ("offset32", 1, 16, 48, 4, 1, 16, True, 0, 32),
     ("ragged_sq100", 1, 100, 100, HQ, HKV, HD, True, 0, 0),
     ("offset64_hd64", 2, 72, 136, 8, 2, 64, True, 0, 64),
+    ("masked_rows", 1, 40, 40, 4, 2, 16, True, 8, -8),
 ]
 
 
 FLASH_TIMED = ("train2048", "serve_prefill512", "zamba2_train2048_hd112",
-               "zamba2_prefill512_hd112")
+               "zamba2_prefill512_hd112", "bert_train512")
 
 
 def flash_bound_s(q, k, v, **kw) -> float:
@@ -565,7 +580,71 @@ def phase3(fa, ops, dev, flush, card):
             results.append(rec)
             say("phase 3:", json.dumps(rec))
     assert not failed, "phase 3: " + "; ".join(failed)
-    return results
+    step = phase3_train_step(fa, dev, card)
+    say("phase 3: profiled train step:", json.dumps(step))
+    return dict(cases=results, train_step=step)
+
+
+def phase3_train_step(fa, dev, card):
+    """One profiled train step of full-width chatglm3-6b at 2 fp32 layers
+    (K 2, M 2, S 2, seq 512, remat, K1 on) with the step's tracer on: the
+    card's records named ``flash_attention`` equal K1's forward launches,
+    and the backward kernels' calls (``attention_bwd.launches``) equal the
+    step's K1 backward calls (the tracer's ``k1_backward`` counter) and
+    one per (trial, microbatch, layer) use."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.partitioner import plan_stages
+    from repro_torch.data.pipeline import TrainBatches
+    from repro_torch.kernels import attention_bwd as bwd
+    from repro_torch.models.layers import kernel_options
+    from repro_torch.obs.tracer import Tracer
+    from repro_torch.optim.adamw import AdamW
+
+    cfg = dataclasses.replace(get_config("chatglm3-6b"), n_layers=2)
+    eng = pl.EngineConfig(n_trials=2, n_microbatches=2, microbatch=1,
+                          n_stages=2)
+    seq, tracer = 512, Tracer(enabled=False)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = pl.init_trial_params(cfg, eng, plan_stages(cfg, eng.n_stages),
+                                  gen, device=dev)
+    opt = AdamW(grad_clip=1.0)
+    state = opt.init(params)
+    step = pl.make_train_step(cfg, kernel_options(cfg, remat=True), eng, opt,
+                              tracer=tracer)
+    data = TrainBatches(cfg, eng, seq, seed=3)
+    batches = [data.batch_for_step(i) for i in range(2)]
+    data.close()
+    hp = {"lr": [1e-4, 3e-4], "wd": [0.0, 0.1]}
+    step(params, state, batches[0], hp, 0)
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    reset_counts(bwd)
+    tracer.enabled = True
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, metrics = step(params, state, batches[1], hp, 1)
+        torch.cuda.synchronize()
+    tracer.enabled = False
+    kernels = device_kernels(prof)
+    k1_records = sum(1 for n, _, _ in kernels if "flash_attention" in n)
+    bwd_calls = sum(tracer.counters.get("k1_backward", {}).values())
+    uses = eng.n_trials * eng.n_microbatches * cfg.n_layers
+    rec = dict(card=card, arch=cfg.name, n_layers=cfg.n_layers,
+               trials=eng.n_trials, microbatches=eng.n_microbatches,
+               stages=eng.n_stages, seq=seq,
+               k1_forward_launches=fa.launches, k1_records=k1_records,
+               k1_backward_calls=bwd_calls,
+               attention_bwd_launches=bwd.launches,
+               attention_uses=uses,
+               attention_bwd_kernel_ms=backward_kernel_ms(kernels),
+               losses=[float(x) for x in metrics["loss"]])
+    assert np.isfinite(rec["losses"]).all(), rec
+    assert k1_records == fa.launches > 0, rec
+    assert bwd.launches == bwd_calls == uses, rec
+    reset_counts(bwd)
+    return rec
 
 
 def k1_check(fa, ops, dev, flush, card, gen, dt, case, timed, failed):
@@ -606,9 +685,11 @@ def k1_check(fa, ops, dev, flush, card, gen, dt, case, timed, failed):
             qt, kt, vt, is_causal=causal, enable_gqa=True)
         rec["library_max_abs_err"] = float(
             (lib.transpose(1, 2).float() - want.float()).abs().max())
+    rec["backward"] = k1_backward_check(dev, flush, gen, q, k, v, kw, name,
+                                        timed, failed)
     if dt == torch.float32:
-        # gradients: the op (kernel forward, chunked backward) against
-        # autograd of the plain version
+        # gradients: the op (both kernels) against autograd of the plain
+        # version
         ct = torch.randn(q.shape, generator=gen, device=dev)
         grads = []
         for fn in (ops.flash_attention, fa.flash_attention_plain):
@@ -623,6 +704,77 @@ def k1_check(fa, ops, dev, flush, card, gen, dt, case, timed, failed):
                 and gerr < 2e-5):
             failed.append(f"{name}: gradient error {gerr}")
         rec["grad_rel_err"] = gerr
+    return rec
+
+
+def backward_kernel_ms(kernels, calls: int = 1) -> dict:
+    """Device ms of K1's backward kernels by name (``attn_bwd_*``, template
+    arguments dropped) over ``device_kernels`` records, per call."""
+    out: dict = {}
+    for n, _, ms in kernels:
+        if "attn_bwd_" in n:
+            key = n[n.index("attn_bwd_"):].split("<")[0]
+            out[key] = out.get(key, 0.0) + ms / calls
+    return out
+
+
+def k1_backward_check(dev, flush, gen, q, k, v, kw, name, timed, failed):
+    """K1's backward kernels at one case against the plain backward
+    (autograd through ``chunked_attention``) run in fp32 on the same
+    values: each gradient within ``FLASH_TOL`` of its largest entry;
+    finite, zero on rows with no visible key. ``timed``: the kernels'
+    time (and each kernel's, from a profile of three calls) beside the
+    bound of the five products, the plain backward's time in the case's
+    dtype (what the port ran before) and SDPA's backward as a yardstick.
+    Failures go to ``failed``; returns the record."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import attention_bwd as bwd
+    from repro_torch.kernels import flash_attention as fa
+
+    dt = q.dtype
+    out = fa.flash_attention_kernel(q, k, v, **kw)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(dt)
+    got = bwd.attention_bwd_kernel(q, k, v, out, dout, **kw)
+    want = bwd.attention_bwd_plain(*(t.float() for t in (q, k, v, out,
+                                                         dout)), **kw)
+    torch.cuda.synchronize()
+    errs = [float((g.float() - w).abs().max()) / float(w.abs().max())
+            for g, w in zip(got, want)]
+    off = kw["kv_offset"]
+    ok = (all(g.dtype == dt and bool(torch.isfinite(g).all()) for g in got)
+          and max(errs) < FLASH_TOL[dt]
+          and (off >= 0 or not got[0][:, :-off].any()))
+    if not ok:
+        failed.append(f"{name}/{dt}: backward errors {errs}")
+    rec = dict(rel_err_dq_dk_dv=errs, tol=FLASH_TOL[dt])
+    if timed:
+        nbytes, ops_n, _ = costs.attention_bwd_work(q, k, v, **kw)
+        bound, by = costs.bound_s(nbytes, ops_n, dt)
+        run = lambda: bwd.attention_bwd_kernel(q, k, v, out, dout, **kw)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+        per_kernel = backward_kernel_ms(device_kernels(prof), calls=3)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        lib = F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=kw["causal"], enable_gqa=True)
+        lib_ct = dout.transpose(1, 2)
+        # the plain backward's own device time (CUDA events around it
+        # time its host enqueue: thousands of small ops)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            bwd.attention_bwd_plain(q, k, v, out, dout, **kw)
+            torch.cuda.synchronize()
+        rec["plain_device_ms"] = sum(ms for _, _, ms in device_kernels(prof))
+        rec.update(
+            ms=cuda_ms(run, flush), kernel_ms=per_kernel,
+            plain_ms=cuda_ms(lambda: bwd.attention_bwd_plain(
+                q, k, v, out, dout, **kw), flush, iters=10, warmup=2),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                lib, (qt, kt, vt), lib_ct, retain_graph=True), flush),
+            bound_ms=1e3 * bound, bound_by=by, bytes=nbytes, ops=ops_n)
     return rec
 
 
@@ -1209,6 +1361,8 @@ def kernel_class(name: str) -> str:
     n = name.lower()
     if any(k in name for k in K1_KERNELS):
         return "k1_flash_attention"
+    if "attn_bwd_" in name:
+        return "k1_backward"
     if any(k in name for k in K2_KERNELS):
         return "k2_paged_attention"
     if any(t in n for t in ("gemm", "gemv", "cutlass", "xmma", "cublas")):
@@ -4109,9 +4263,8 @@ def phase18_grid(card):
 def attention_terms(cfg, opts, mbg, seq):
     """FLOPs of one attention use at the training step's shape, counted on
     meta: the plain path's forward and its backward (its chunked q-block
-    recompute included), and K1's backward (``ops._FlashAttention``: the
-    chunked attention at 512-token blocks, recomputed and differentiated);
-    K1's forward is its own count over the causal pairs."""
+    recompute included); K1's forward and its backward kernels (the five
+    products a causal pair needs) are their wrappers' own counts."""
     from repro_torch.models import layers as L
 
     meta = lambda *shape: torch.zeros(shape, device="meta",
@@ -4124,12 +4277,8 @@ def attention_terms(cfg, opts, mbg, seq):
         out = L.attention(q, k, v, causal=True, opts=opts)
     with costs.count() as bwd:
         torch.autograd.grad(out, (q, k, v), ct)
-    with costs.count() as k1_bwd:
-        o = L.chunked_attention(q, k, v, causal=True, q_chunk=512,
-                                kv_chunk=512)
-        torch.autograd.grad(o, (q, k, v), ct)
     return dict(plain_fwd=fwd.flops, plain_bwd=bwd.flops,
-                k1_bwd=k1_bwd.flops,
+                k1_bwd=costs.attention_bwd_work(q, k, v)[1],
                 k1_fwd=costs.flash_work(q, k, v)[1])
 
 
@@ -4212,6 +4361,8 @@ def phase18_counter(fa, dev, card):
         {k: v for k, v in rec.items()
          if k not in ("card_count", "meta_count")}))
     assert launches > 0 and k1_count == launches, (launches, k1_count)
+    bwd_count = card_c.count_by_kind.get("attention_bwd", 0)
+    assert bwd_count == n_bwd, (bwd_count, n_bwd)
     assert k1_flops == n_fwd * terms["k1_fwd"] > 0, \
         f"the card's count misses K1's forward ({k1_flops})"
     assert residual == 0, f"phase 18 (b): unexplained FLOPs {residual}"
@@ -4858,6 +5009,8 @@ def phase20(pa, fa, ms, dev, card):
 
 
 PHASES = tuple(range(1, 21))
+BWD_FIELDS = ("rel_err_dq_dk_dv", "ms", "kernel_ms", "plain_ms",
+              "plain_device_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def write_json(path: str, res: dict) -> None:
@@ -4881,6 +5034,7 @@ def main(argv=None) -> int:
         return 2
     run = ({int(x) for x in args.phases.split(",")} | {1} if args.phases
            else set(PHASES))
+    from repro_torch.kernels import attention_bwd as bwd
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
@@ -4895,7 +5049,8 @@ def main(argv=None) -> int:
     say(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; TF32 off for matmul and cuDNN")
     t0 = time.perf_counter()
-    builds = [(m.SOURCE, kbuild.start(m.SOURCE)) for m in (pa, fa, ms)]
+    builds = [(m.SOURCE, kbuild.start(m.SOURCE))
+              for m in (pa, fa, ms, bwd)]
     for source, proc in builds:  # one nvcc per source, all started at once
         report = kbuild.finish(source, proc)
         say(f"phase 1: built {kbuild.library_path(source).name} from "
@@ -4995,7 +5150,7 @@ def main(argv=None) -> int:
             write_json(args.out, res)
         say(f"partial run (phases {sorted(run)}): every phase run passed")
         return 0
-    p2, p3, p8 = res["phase2"], res["phase3"], res["phase8"]
+    p2, p3, p8 = res["phase2"], res["phase3"]["cases"], res["phase8"]
     def timed_rows(rows):
         return {r["case"] + "/" + r["dtype"]: {
             n: r.get(n) for n in ("max_abs_err", "ms", "plain_ms",
@@ -5012,6 +5167,9 @@ def main(argv=None) -> int:
                 if c["case"] == "train2048" and c["dtype"] == "float32")
     srow = next(c for c in p8
                 if c["case"] == "path512" and c["dtype"] == "float32")
+    brow, bert = (next(c for c in p3 if c["case"] == case
+                       and c["dtype"] == "float32")
+                  for case in ("train2048", "bert_train512"))
     k2_paths = {"phase5_split_serving": pa_launches,
                 "phase12_serve_features": pa_feature_launches,
                 "phase13_windowed": p13["k2_windowed"],
@@ -5065,7 +5223,15 @@ def main(argv=None) -> int:
         "max_abs_err": srow["max_abs_err"],
         "ms": srow["ms"], "plain_ms": srow["plain_ms"],
         "bound_ms": srow["bound_ms"], "bound_by": srow["bound_by"],
-        "library_ms": None}]}
+        "library_ms": None}, {
+        "name": "attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/attention_bwd.cu",
+        "replaces": None,  # K1's backward: the TPU path has no kernel
+        # phase 3's profiled step, then every backward call after it
+        "launches": res["phase3"]["train_step"]["attention_bwd_launches"]
+        + bwd.launches,
+        **{n: brow["backward"].get(n) for n in BWD_FIELDS},
+        "at_bert_shape": {n: bert["backward"].get(n) for n in BWD_FIELDS}}]}
     res["kernels"] = kernels["kernels"]
     if args.out:
         write_json(args.out, res)

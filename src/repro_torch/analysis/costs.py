@@ -17,8 +17,8 @@ dry-run: nothing is allocated or computed):
 
 The hand-written kernels are ``ctypes`` calls that no dispatch mode sees,
 so each wrapper adds its launch's work with :func:`record_launch`, by the
-formulas below (``flash_work``, ``paged_work``, ``scan_work``) — the same
-ones ``chip_smoke.py`` bounds each kernel by.
+formulas below (``flash_work``, ``attention_bwd_work``, ``paged_work``,
+``scan_work``) — the same ones ``chip_smoke.py`` bounds each kernel by.
 
 **Loop-awareness.** A step's work is linear in its slot count (each
 (stage, slot) pair does the same work; embedding, loss head and optimizer
@@ -184,6 +184,17 @@ def flash_work(q, k, v, causal=True, window=0, kv_offset=0):
     pairs = flash_pairs(sq, k.shape[1], causal, window, kv_offset)
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     return nbytes, 4 * hd * hq * b * pairs, pairs
+
+
+def attention_bwd_work(q, k, v, causal=True, window=0, kv_offset=0):
+    """(bytes, operations, attended pairs) one K1 backward must move and
+    do: q, k, v, the output and its cotangent read once, dq, dk and dv
+    written once; the five products a kept pair needs (S recomputed, dP,
+    dV, dK, dQ), 2 operations per multiply-add."""
+    b, sq, hq, hd = q.shape
+    pairs = flash_pairs(sq, k.shape[1], causal, window, kv_offset)
+    nbytes = q.element_size() * 2 * (2 * q.numel() + k.numel() + v.numel())
+    return nbytes, 10 * hd * hq * b * pairs, pairs
 
 
 def case_work(offsets, q_lens, sq, window):

@@ -9,8 +9,11 @@ on the CPU.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch.kernels import attention_bwd as bwd
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import paged_attention as pa
@@ -35,38 +38,44 @@ def _route(t, plain, kernel, *others):
 
 
 # ---------------------------------------------------------------------------
-# flash attention: kernel forward + chunked online-softmax backward (the
-# reference's ``_flash_core`` custom_vjp: the Pallas kernel has no AD rule,
-# and its backward is jax.vjp through the chunked jnp path)
+# flash attention: kernel forward + backward. The reference's
+# ``_flash_core`` custom_vjp has no backward kernel (the Pallas kernel has
+# no AD rule, and its backward is jax.vjp through the chunked jnp path):
+# that chunked backward is the plain version here, and a CUDA tensor runs
+# the port's own backward kernels
 # ---------------------------------------------------------------------------
 
 
 class _FlashAttention(torch.autograd.Function):
     """Forward: the CUDA kernel on a CUDA tensor, the plain version on a CPU
-    one. Backward: autograd through ``layers.chunked_attention`` with
-    ``q_chunk = max(block_q, 128)`` and ``kv_chunk = max(block_k, 128)``,
-    recomputing the score blocks from (q, k, v) — as ``ops._flash_bwd``."""
+    one. Backward: the backward kernels (``kernels/attention_bwd.py``) on a
+    CUDA tensor; on a CPU one autograd through ``layers.chunked_attention``
+    with ``q_chunk = max(block_q, 128)`` and ``kv_chunk = max(block_k,
+    128)``, recomputing the score blocks from (q, k, v) — as
+    ``ops._flash_bwd``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, kv_offset, block_q, block_k):
-        ctx.save_for_backward(q, k, v)
-        ctx.args = (causal, window, kv_offset, block_q, block_k)
         fn = _route(q, fa.flash_attention_plain, fa.flash_attention_kernel,
                     k, v)
-        return fn(q, k, v, causal=causal, window=window, kv_offset=kv_offset)
+        if (fn is fa.flash_attention_kernel
+                and any(ctx.needs_input_grad[:3])):
+            bwd.prebuild()  # the backward's nvcc beside the forward's
+        out = fn(q, k, v, causal=causal, window=window, kv_offset=kv_offset)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.args = (causal, window, kv_offset, block_q, block_k)
+        return out
 
     @staticmethod
     def backward(ctx, ct):
-        from repro_torch.models.layers import chunked_attention
         causal, window, kv_offset, block_q, block_k = ctx.args
-        with torch.enable_grad():
-            q, k, v = (t.detach().requires_grad_()
-                       for t in ctx.saved_tensors)
-            out = chunked_attention(q, k, v, causal=causal, window=window,
-                                    kv_offset=kv_offset,
-                                    q_chunk=max(block_q, 128),
-                                    kv_chunk=max(block_k, 128))
-            dq, dk, dv = torch.autograd.grad(out, (q, k, v), ct)
+        q, k, v, out = ctx.saved_tensors
+        plain = functools.partial(bwd.attention_bwd_plain,
+                                  q_chunk=max(block_q, 128),
+                                  kv_chunk=max(block_k, 128))
+        fn = _route(q, plain, bwd.attention_bwd_kernel, k, v, ct)
+        dq, dk, dv = fn(q, k, v, out, ct.contiguous(), causal=causal,
+                        window=window, kv_offset=kv_offset)
         return dq, dk, dv, None, None, None, None, None
 
 

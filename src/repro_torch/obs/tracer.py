@@ -58,10 +58,11 @@ Each span is also a ``torch.profiler.record_function`` range named
 the program's ranges beside the kernels they launch; readers take the
 name up to the first space. Counters (:meth:`Tracer.count`) add up in
 ``tracer.counters[name][range]`` under the innermost span open on the
-counting thread: ``hop_bytes`` (the bytes of each hop) and
+counting thread: ``hop_bytes`` (the bytes of each hop),
 ``host_syncs`` (each synchronising CUDA call the step makes, from
 ``torch.cuda.set_sync_debug_mode("warn")`` while the tracer is on; the
-CPU makes none).
+CPU makes none) and ``k1_backward`` (each K1 backward call that ran the
+backward kernels, ``kernels/attention_bwd.py``; none on the CPU).
 
 Timestamps: ``tick`` is the engine round (set once per round via
 :meth:`begin_tick`; emission sites never thread it), ``wall`` is seconds

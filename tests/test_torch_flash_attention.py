@@ -17,9 +17,17 @@
   plain version and the op's gradients against the Pallas kernel in
   interpret mode.
 
-The CUDA kernel itself runs only on a card: its test carries the ``gpu``
-marker and skips here (chip_smoke.py holds it against the plain version
-at the training path's shapes)."""
+* the backward: on a CPU tensor ``ops.flash_attention``'s gradients are
+  autograd through ``chunked_attention``, bit for bit; the backward
+  kernels' wrapper refuses what the kernels do not take; no device kernel
+  of its source carries K1's forward's name (the benchmark counts K1's
+  forward records by it).
+
+The CUDA kernels themselves run only on a card: their tests carry the
+``gpu`` marker and skip here (chip_smoke.py holds them against the plain
+versions at the training path's shapes)."""
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,8 +36,11 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.models import layers as jlayers
+from repro_torch.analysis import costs
+from repro_torch.kernels import attention_bwd as tbwd
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
+from repro_torch.obs import tracer as tobs
 from repro_torch.models import layers as tlayers
 
 torch.set_num_threads(2)
@@ -300,3 +311,232 @@ def test_kernel_launches_on_its_tensors_device(dt):
     torch.cuda.synchronize(dev)
     assert got.device == dev
     assert float((got.float() - want.float()).abs().max()) < TOL[dt]
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels (kernels/attention_bwd.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", range(len(GRAD_CASES)))
+def test_cpu_gradients_are_chunked_autograd_bit_for_bit(case):
+    """On a CPU tensor the op's backward is autograd through
+    ``chunked_attention`` at ``max(block, 128)``-sized chunks, exactly."""
+    b, sq, sk, hq, hkv, hd, causal, window, off, blk = GRAD_CASES[case]
+    arrs = _qkv(60 + case, b, sq, sk, hq, hkv, hd)
+    ct = torch.from_numpy(np.random.default_rng(80 + case).normal(
+        size=arrs[0].shape).astype(np.float32))
+    kw = dict(causal=causal, window=window, kv_offset=off)
+    launches = tbwd.launches
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrs)
+    tops.flash_attention(q, k, v, block_q=blk, block_k=blk,
+                         **kw).backward(ct)
+    assert tbwd.launches == launches  # a CPU tensor never reaches it
+    leaves = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    tlayers.chunked_attention(*leaves, q_chunk=128, kv_chunk=128,
+                              **kw).backward(ct)
+    for got, want in zip((q.grad, k.grad, v.grad), leaves):
+        assert torch.equal(got, want.grad)
+
+
+def _bwd_args(seed, b=1, sq=16, sk=16, hq=4, hkv=2, hd=16):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(seed, b, sq, sk, hq, hkv,
+                                                  hd))
+    return q, k, v, torch.zeros_like(q), torch.ones_like(q)
+
+
+@pytest.mark.parametrize("where", ["cpu", "meta"])
+def test_backward_wrapper_refuses_cpu_and_meta_tensors(where):
+    args = [t.to(where) for t in _bwd_args(11)]
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tbwd.attention_bwd_kernel(*args)
+
+
+@pytest.mark.parametrize("which", range(5))
+def test_backward_wrapper_refuses_dtype_mismatches(which):
+    args = list(_bwd_args(12))
+    args[which] = args[which].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        tbwd.attention_bwd_kernel(*args)
+
+
+
+@pytest.mark.parametrize("empty", ["b", "sq", "sk", "none"])
+def test_backward_wrapper_counts_only_calls_that_launch(monkeypatch, empty):
+    """``launches``, its dtype split, the step tracer's ``k1_backward`` and
+    the cost record count a call once its kernels launched; an empty input
+    launches nothing, counts nothing and gets zero gradients. (The card is
+    stood in for: the device check passes the CPU tensors and the launch
+    records its call.)"""
+    b, sq, sk = (0 if empty == n else 3 for n in ("b", "sq", "sk"))
+    q, k, v = (torch.from_numpy(a)
+               for a in _qkv(16, max(b, 1), max(sq, 1), max(sk, 1), 4, 2, 16))
+    q, k, v = q[:b, :sq], k[:b, :sk], v[:b, :sk]
+    args = (q, k, v, torch.ones_like(q), torch.ones_like(q))
+    ran, recorded = [], []
+    monkeypatch.setattr(tbwd.kbuild, "launch_device",
+                        lambda *a, **t: q.device)
+    monkeypatch.setattr(tbwd, "_launch", lambda *a: ran.append(a))
+    monkeypatch.setattr(tbwd.costs, "record_launch",
+                        lambda *a: recorded.append(a[0]))
+    monkeypatch.setattr(tbwd, "launches", 5)
+    monkeypatch.setattr(tbwd, "variant_launches", {"bf16": 0, "fp32": 0})
+    tr = tobs.Tracer()
+    with tobs.using(tr), costs.count():
+        dq, dk, dv = tbwd.attention_bwd_kernel(*args)
+    n = int(empty == "none")
+    assert len(ran) == n and recorded == ["attention_bwd"] * n
+    assert tbwd.launches == 5 + n
+    assert tbwd.variant_launches == {"bf16": 0, "fp32": n}
+    assert sum(tr.counters.get("k1_backward", {}).values()) == n
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    if not n:
+        assert not (dq.any() or dk.any() or dv.any())
+
+
+def test_backward_build_starts_once(monkeypatch):
+    """The op's first CUDA forward starts the backward's build, once; the
+    first backward waits for it."""
+    started = []
+    monkeypatch.setattr(tbwd, "_prebuilt", False)
+    monkeypatch.setattr(tbwd, "_prebuild", None)
+    monkeypatch.setattr(tbwd.kbuild, "start",
+                        lambda source: started.append(source))
+    tbwd.prebuild()
+    tbwd.prebuild()
+    assert started == [tbwd.SOURCE]
+
+@pytest.mark.parametrize("hd", [8, 96])
+def test_backward_wrapper_refuses_head_dims_it_was_not_built_for(hd):
+    assert hd not in tfa.HEAD_DIMS
+    with pytest.raises(ValueError, match="head_dim"):
+        tbwd.attention_bwd_kernel(*_bwd_args(13, hd=hd))
+
+
+def test_backward_wrappers_refuse_inputs_split_across_devices():
+    """The kernels' wrapper and the op's backward refuse a split (a CPU
+    dout beside meta q, k, v, out; on cards, one card beside another)."""
+    q, k, v, out, dout = _bwd_args(14)
+    meta = [t.to("meta") for t in (q, k, v, out)]
+    with pytest.raises(ValueError, match="split across devices"):
+        tbwd.attention_bwd_kernel(*meta, dout)
+
+    class Ctx:  # what autograd hands the backward: saved tensors and args
+        saved_tensors = tuple(meta)
+        args = (True, 0, 0, 512, 512)
+
+    with pytest.raises(ValueError, match="split across devices"):
+        tops._FlashAttention.backward(Ctx, dout)
+
+
+def test_backward_source_names_no_kernel_after_k1s_forward():
+    """No __global__ function, namespace or type the backward's source
+    declares carries ``flash_attention``: the benchmark takes every device
+    record with that name for a K1 forward launch."""
+    src = tbwd.SOURCE.read_text()
+    code = re.sub(r"//[^\n]*|/\*.*?\*/", "", src, flags=re.S)
+    kernels = re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
+        code)
+    assert {"attn_bwd_rowstats_kernel", "attn_bwd_dkdv_kernel",
+            "attn_bwd_dkdv_reduce_kernel", "attn_bwd_dq_kernel"} \
+        <= set(kernels)
+    names = kernels + re.findall(
+        r"\b(?:namespace|struct|class|using|typedef)\s+(\w+)", code)
+    assert names and not [n for n in names if "flash_attention" in n]
+    assert "flash_attention" not in code  # nor in any type or parameter
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((1, 2, 16, 32, 132), 8),    # chatglm3-6b, 2048 keys: 64 blocks alone
+    ((8, 16, 1, 8, 132), 1),     # bert-large, b 8, 512 keys: 1,024 blocks
+    ((1, 1, 6, 1, 132), 6),      # too few blocks at any split: the group
+    ((2, 2, 4, 100, 132), 1),    # enough blocks unsplit
+])
+def test_gqa_split_fills_the_card(shape, want):
+    assert tbwd.gqa_split(*shape) == want
+
+
+def test_backward_work_is_five_products_of_k1s_pairs():
+    q, k, v = (torch.empty(s) for s in ((2, 100, 8, 64), (2, 100, 2, 64),
+                                         (2, 100, 2, 64)))
+    fwd_bytes, fwd_ops, pairs = costs.flash_work(q, k, v, True, 24, 0)
+    nbytes, ops_n, bwd_pairs = costs.attention_bwd_work(q, k, v, True, 24, 0)
+    assert bwd_pairs == pairs and 2 * ops_n == 5 * fwd_ops
+    assert nbytes == 4 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel())
+
+
+# the backward's card cases: CARD_SWEEP's (head dims the kernels take),
+# a fully masked row, GQA group 16 at chatglm3-6b's head dim, bert-large's
+# non-causal shape (b 2), and a ragged 200-row case that splits its group
+BWD_CARD_SWEEP = [c for c in CARD_SWEEP if c[5] in tfa.HEAD_DIMS] + [
+    (1, 40, 40, 4, 2, 16, True, 8, -8, "float32"),
+    (1, 40, 40, 4, 2, 16, True, 8, -8, "bfloat16"),
+    (1, 256, 256, 32, 2, 128, True, 0, 0, "float32"),
+    (1, 256, 256, 32, 2, 128, True, 0, 0, "bfloat16"),
+    (2, 512, 512, 16, 16, 64, False, 0, 0, "float32"),
+    (1, 200, 200, 16, 1, 32, True, 0, 0, "float32"),
+]
+
+
+def _bwd_on_card(dev, case, seed):
+    b, sq, sk, hq, hkv, hd, causal, window, off, dt = case
+    q, k, v = (torch.from_numpy(a).to(dev, TDT[dt])
+               for a in _qkv(seed, b, sq, sk, hq, hkv, hd))
+    kw = dict(causal=causal, window=window, kv_offset=off)
+    out = tfa.flash_attention_kernel(q, k, v, **kw)
+    dout = torch.from_numpy(np.random.default_rng(seed + 1).normal(
+        size=q.shape).astype(np.float32)).to(dev, TDT[dt])
+    return (q, k, v, out, dout), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(BWD_CARD_SWEEP)))
+def test_backward_kernel_vs_plain_on_card(cuda_device, case):
+    """Each gradient within 2e-5 (fp32) or 2e-2 (bf16) of its largest
+    entry of the plain backward's, taken in fp32 on the same values."""
+    dt = BWD_CARD_SWEEP[case][-1]
+    args, kw = _bwd_on_card(cuda_device, BWD_CARD_SWEEP[case], 90 + case)
+    got = tbwd.attention_bwd_kernel(*args, **kw)
+    want = tbwd.attention_bwd_plain(*(t.float() for t in args), **kw)
+    torch.cuda.synchronize()
+    off = BWD_CARD_SWEEP[case][8]
+    for g, w in zip(got, want):
+        assert g.dtype == TDT[dt] and bool(torch.isfinite(g).all())
+        err = float((g.float() - w).abs().max())
+        assert err <= TOL[dt] * float(w.abs().max())
+    if off < 0:  # rows with no visible key: a zero gradient
+        assert not got[0][:, :-off].any()
+
+
+@pytest.mark.gpu
+def test_backward_kernel_is_deterministic(cuda_device):
+    """No atomics, partial dK / dV summed in a fixed order: two runs give
+    the same bits (this shape splits its group of 16 over blocks)."""
+    case = (1, 256, 256, 32, 2, 128, True, 0, 0, "float32")
+    args, kw = _bwd_on_card(cuda_device, case, 7)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert tbwd.gqa_split(1, 2, 16, 4, sms) > 1
+    first = tbwd.attention_bwd_kernel(*args, **kw)
+    second = tbwd.attention_bwd_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_backward_kernel_launches_on_its_tensors_device(dt):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    dev = torch.device("cuda:1")
+    args, kw = _bwd_on_card(dev, (1, 256, 256, 32, 2, 128, True, 0, 0, dt),
+                            15)
+    with torch.cuda.device(0):
+        got = tbwd.attention_bwd_kernel(*args, **kw)
+        want = tbwd.attention_bwd_plain(*(t.float() for t in args), **kw)
+    torch.cuda.synchronize(dev)
+    for g, w in zip(got, want):
+        assert g.device == dev
+        err = float((g.float() - w).abs().max())
+        assert err <= TOL[dt] * float(w.abs().max())
