@@ -1,5 +1,6 @@
 """Config registry of the PyTorch port: the 10 assigned architectures and
-the paper's own workloads, as ``repro.configs`` has them.
+the paper's own workloads, as ``repro.configs`` has them, and the
+architectures the port adds (``EXTRA_ARCHS``).
 
 ``get_config(name)`` / ``list_archs()`` / ``REGISTRY`` / ``MLP_CONFIG`` /
 ``SHAPES`` / ``input_specs`` are the public entry points used by the
@@ -8,6 +9,7 @@ launchers, the dry-run, tests and ``chip_smoke.py``.
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
     HybridConfig,
+    HybridMoEConfig,
     MoEConfig,
     SSMConfig,
     ShapeConfig,
@@ -25,6 +27,7 @@ from repro_torch.configs import (
     chatglm3_6b,
     deepseek_67b,
     falcon_mamba_7b,
+    granite_4_0_h_small,
     granite_moe_3b_a800m,
     llama4_scout_17b_a16e,
     mlp_1m,
@@ -60,15 +63,20 @@ PAPER_ARCHS = {
 
 REGISTRY = {**ASSIGNED_ARCHS, **PAPER_ARCHS}
 
+# Architectures the port runs beyond the reference's registry (the
+# benchmark's): found by ``get_config``, outside ``list_archs``.
+EXTRA_ARCHS = {granite_4_0_h_small.CONFIG.name: granite_4_0_h_small.CONFIG}
+
 MLP_CONFIG = mlp_1m.CONFIG
 
 
 def get_config(name: str) -> ArchConfig:
     try:
-        return REGISTRY[name]
+        return REGISTRY[name] if name in REGISTRY else EXTRA_ARCHS[name]
     except KeyError:
         raise KeyError(
-            f"unknown arch {name!r}; available: {sorted(REGISTRY)}") from None
+            f"unknown arch {name!r}; available: "
+            f"{sorted(REGISTRY) + sorted(EXTRA_ARCHS)}") from None
 
 
 def list_archs(assigned_only: bool = False):

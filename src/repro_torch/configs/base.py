@@ -67,7 +67,9 @@ class HybridConfig:
 # Architecture config
 # ---------------------------------------------------------------------------
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm", "encoder", "mlp")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm", "encoder", "mlp",
+            "hybrid_moe")
+LAYER_KINDS = ("mamba", "attention")  # a hybrid_moe layer's mixer
 ROPE_KINDS = ("1d", "2d", "mrope", "none", "learned")
 
 
@@ -95,6 +97,18 @@ class ArchConfig:
     sliding_window: int = 0  # 0 = full attention; >0 = window (long-context)
     source: str = ""  # provenance note
 
+    # The hybrid_moe family's settings are fields of :class:`HybridMoEConfig`;
+    # every other config reads these class defaults, under which they
+    # change nothing (and add no operation).
+    layer_types = ()  # each layer's mixer, one of LAYER_KINDS
+    attention_multiplier = 0.0  # the attention scale; 0: 1 / sqrt(head_dim)
+    embedding_multiplier = 1.0  # on the token embedding
+    residual_multiplier = 1.0  # on each sub-layer's residual branch
+    logits_scaling = 1.0  # the logits are divided by it
+    shared_d_ff = 0  # a shared SwiGLU expert beside the routed ones; 0: none
+    n_held_experts = 0  # the routed experts this card holds; 0: all
+    first_held_expert = 0  # ... from this id on
+
     # -- derived ------------------------------------------------------------
     def __post_init__(self):
         if self.family not in FAMILIES:
@@ -117,9 +131,54 @@ class ArchConfig:
         """long_500k runs only for sub-quadratic sequence mixers (SSM/hybrid)."""
         return self.family in ("ssm", "hybrid")
 
+    @property
+    def held_experts(self) -> tuple:
+        """(first id, count) of the routed experts whose weights a layer
+        holds: one card's share under expert parallelism, or all."""
+        return (self.first_held_expert,
+                self.n_held_experts or self.moe.n_experts)
+
+    def layer_kind(self, layer: int) -> Optional[str]:
+        """A mixed stack's mixer of ``layer`` (None past the real layers:
+        stage padding, which holds no weights)."""
+        return self.layer_types[layer] if layer < self.n_layers else None
+
     # -- parameter counting (used by memory model + MODEL_FLOPS) -------------
-    def layer_param_count(self) -> int:
+    def _attn_param_count(self) -> int:
+        return self.d_model * self.head_dim * (self.n_heads
+                                               + 2 * self.n_kv_heads) \
+            + self.n_heads * self.head_dim * self.d_model
+
+    def _mamba2_param_count(self) -> int:
+        """A Mamba2 mixer without its pre-norm."""
+        d, s = self.d_model, self.ssm
+        di = s.d_inner(d)
+        nh = s.n_ssm_heads(d)
+        g = s.n_groups
+        conv_dim = di + 2 * g * s.d_state
+        return (
+            d * (2 * di + 2 * g * s.d_state + nh)  # in_proj (mamba2)
+            + conv_dim * s.d_conv + conv_dim  # conv
+            + 3 * nh  # A_log, D, dt_bias
+            + di  # gated norm
+            + di * d  # out_proj
+        )
+
+    def layer_param_count(self, layer: Optional[int] = None) -> int:
+        """Parameters of one layer; in a mixed stack (``layer_types``) of
+        layer ``layer``, or with None of its largest kind."""
         d, f = self.d_model, self.d_ff
+        if self.layer_types:
+            if layer is None:
+                return max(self.layer_param_count(self.layer_types.index(k))
+                           for k in set(self.layer_types))
+            mixer = (self._mamba2_param_count()
+                     if self.layer_kind(layer) == "mamba"
+                     else self._attn_param_count())
+            e, ff = self.moe.n_experts, self.moe.expert_d_ff
+            moe = d * e + self.held_experts[1] * 3 * d * ff \
+                + 3 * d * self.shared_d_ff
+            return mixer + moe + 2 * d  # two pre-norms
         if self.family == "ssm":
             s = self.ssm
             di = s.d_inner(d)
@@ -136,22 +195,9 @@ class ArchConfig:
                 )
             raise ValueError("ssm family expects mamba1")
         if self.family == "hybrid":
-            s = self.ssm
-            di = s.d_inner(d)
-            nh = s.n_ssm_heads(d)
-            g = s.n_groups
-            conv_dim = di + 2 * g * s.d_state
-            return (
-                d * (2 * di + 2 * g * s.d_state + nh)  # in_proj (mamba2)
-                + conv_dim * s.d_conv + conv_dim  # conv
-                + 3 * nh  # A_log, D, dt_bias
-                + di  # gated norm
-                + di * d  # out_proj
-                + d  # pre-norm
-            )
+            return self._mamba2_param_count() + d  # + pre-norm
         # attention sub-block
-        attn = self.d_model * self.head_dim * (self.n_heads + 2 * self.n_kv_heads) \
-            + self.n_heads * self.head_dim * self.d_model
+        attn = self._attn_param_count()
         if self.moe is not None:
             e, ff = self.moe.n_experts, self.moe.expert_d_ff
             ffn = self.d_model * self.moe.n_experts  # router
@@ -163,16 +209,25 @@ class ArchConfig:
         norms = 2 * self.d_model
         return attn + ffn + norms
 
+    def stack_param_count(self, first: int, n: int) -> int:
+        """Parameters of the layer stack's slice [first, first + n): a
+        mixed stack's real layers (its stage padding holds none), or n of
+        a uniform stack's layers (padding included: a stacked leaf holds
+        every padded layer)."""
+        if self.layer_types:
+            return sum(self.layer_param_count(i)
+                       for i in range(first, min(first + n, self.n_layers)))
+        return n * self.layer_param_count()
+
     def shared_block_param_count(self) -> int:
         if self.hybrid is None:
             return 0
-        attn = self.d_model * self.head_dim * (self.n_heads + 2 * self.n_kv_heads) \
-            + self.n_heads * self.head_dim * self.d_model
+        attn = self._attn_param_count()
         ffn = 3 * self.d_model * self.hybrid.shared_d_ff
         return attn + ffn + 2 * self.d_model
 
     def param_count(self) -> int:
-        n = self.n_layers * self.layer_param_count()
+        n = self.stack_param_count(0, self.n_layers)
         n += self.shared_block_param_count()
         n += self.vocab_size * self.d_model  # embed
         if not self.tie_embeddings:
@@ -181,10 +236,17 @@ class ArchConfig:
         return n
 
     def active_param_count(self) -> int:
-        """Params touched per token (MoE: only top_k experts) — for 6·N_active·D."""
+        """Params touched per token (MoE: only top_k experts) — for
+        6·N_active·D. Where a layer holds a share of the routed experts, a token's top_k
+        picks land on it top_k · held / n_experts times on average."""
         if self.moe is None:
             return self.param_count()
         e, k, ff = self.moe.n_experts, self.moe.top_k, self.moe.expert_d_ff
+        if self.layer_types:
+            held = self.held_experts[1]
+            idle = held - k * held / e  # held experts a token leaves idle
+            return self.param_count() - round(
+                self.n_layers * idle * 3 * self.d_model * ff)
         dense_experts_per_layer = e * 3 * self.d_model * ff
         active_experts_per_layer = k * 3 * self.d_model * ff
         return self.param_count() - self.n_layers * (
@@ -225,6 +287,57 @@ class ArchConfig:
             kw["hybrid"] = HybridConfig(attn_every=2, shared_d_ff=64)
             kw["n_layers"] = 5
         return ArchConfig(**kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridMoEConfig(ArchConfig):
+    """The ``hybrid_moe`` family (HF ``granitemoehybrid``): each layer a
+    Mamba2 (``ssm``) or NoPE GQA attention mixer, by ``layer_types``, then
+    a routed MoE (``moe``) with a shared SwiGLU expert of width
+    ``shared_d_ff``, both residual branches scaled by
+    ``residual_multiplier``; the token embedding times
+    ``embedding_multiplier``, the logits over ``logits_scaling``, the
+    attention scale ``attention_multiplier``. ``n_held_experts`` from
+    ``first_held_expert`` are the routed experts a layer holds (one card's
+    share under expert parallelism; 0: all): the router keeps all
+    ``moe.n_experts`` outputs and its ``top_k``."""
+
+    layer_types: tuple = ()
+    attention_multiplier: float = 0.0
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    shared_d_ff: int = 0
+    n_held_experts: int = 0
+    first_held_expert: int = 0
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.family != "hybrid_moe":
+            raise ValueError("a HybridMoEConfig is of the hybrid_moe family")
+        if len(self.layer_types) != self.n_layers or not set(
+                self.layer_types) <= set(LAYER_KINDS):
+            raise ValueError(f"layer_types must give each of the "
+                             f"{self.n_layers} layers one of {LAYER_KINDS}")
+        first, n = self.held_experts
+        if not 0 <= first and first + n <= self.moe.n_experts:
+            raise ValueError(f"experts {first}..{first + n - 1} are not "
+                             f"among the {self.moe.n_experts}")
+
+    def reduced(self) -> "HybridMoEConfig":
+        """Every mechanism at a CPU test's size: five layers, attention
+        third, eight routed experts of which three are held (from id 2),
+        top-3, the shared expert, the multipliers as they are."""
+        return dataclasses.replace(
+            self, name=self.name + "-smoke", n_layers=5, d_model=64,
+            n_heads=4, n_kv_heads=2, head_dim=16, d_ff=32, vocab_size=128,
+            layer_types=("mamba", "mamba", "attention", "mamba", "mamba"),
+            moe=dataclasses.replace(self.moe, n_experts=8, top_k=3,
+                                    expert_d_ff=32),
+            ssm=dataclasses.replace(self.ssm, d_state=8, head_dim=16,
+                                    chunk_size=8),
+            shared_d_ff=48, n_held_experts=3, first_held_expert=2,
+            source="smoke")
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ Port of ``repro/core/partitioner.py``. For the homogeneous stacks of every
 supported arch the balanced contiguous partition is optimal; the layer count
 is padded to ``stages × layers_per_stage`` with masked no-op layers (padding
 costs nothing in steady state: the tick time is the *maximum* stage load
-either way). The cost model below (per-layer FLOPs and bytes, the
+either way). A mixed stack (the hybrid_moe family) keeps the same
+contiguous split; its cost model counts each layer by its kind. The cost model below (per-layer FLOPs and bytes, the
 linear-partition DP for heterogeneous stacks, the balance report) is the
 reference's, number for number; the dry-run and the scheduler's what-if
 analyses use it.
@@ -56,9 +57,22 @@ def plan_stages(cfg: ArchConfig, n_stages: int) -> StagePlan:
 # ---------------------------------------------------------------------------
 
 
-def layer_flops_per_token(cfg: ArchConfig, seq_len: int) -> float:
-    """Approximate forward FLOPs per token for one layer (matmul-dominated)."""
+def layer_flops_per_token(cfg: ArchConfig, seq_len: int,
+                          layer: int = 0) -> float:
+    """Approximate forward FLOPs per token for one layer (matmul-dominated);
+    in a mixed stack (``cfg.layer_types``) for layer ``layer``: its mixer
+    and its MoE, whose routed experts count by the picks that land on the
+    held ones (top_k · held / n_experts), with the shared expert."""
     d = cfg.d_model
+    if cfg.layer_types:
+        mixer = (_mamba2_flops_per_token(cfg)
+                 if cfg.layer_kind(layer) == "mamba"
+                 else _attn_flops_per_token(cfg, seq_len))
+        m = cfg.moe
+        held = cfg.held_experts[1]
+        moe = 2 * d * m.n_experts + m.top_k * held / m.n_experts \
+            * 6 * d * m.expert_d_ff + 6 * d * cfg.shared_d_ff
+        return mixer + moe
     if cfg.family == "ssm":
         s = cfg.ssm
         di = s.d_inner(d)
@@ -68,13 +82,7 @@ def layer_flops_per_token(cfg: ArchConfig, seq_len: int) -> float:
         scan = 6 * di * s.d_state  # state update + output contraction
         return proj + scan
     if cfg.family == "hybrid":
-        s = cfg.ssm
-        di = s.d_inner(d)
-        nh = s.n_ssm_heads(d)
-        proj = 2 * d * (2 * di + 2 * s.n_groups * s.d_state + nh) + 2 * di * d
-        chunk = 2 * s.chunk_size * nh * (s.d_state + s.head_dim)  # SSD intra
-        scan = 6 * di * s.d_state
-        base = proj + chunk + scan
+        base = _mamba2_flops_per_token(cfg)
         # amortized shared attention block
         attn = _attn_flops_per_token(cfg, seq_len) / cfg.hybrid.attn_every
         mlp = 6 * d * cfg.hybrid.shared_d_ff / cfg.hybrid.attn_every
@@ -88,6 +96,16 @@ def layer_flops_per_token(cfg: ArchConfig, seq_len: int) -> float:
     else:
         flops += 4 * d * cfg.d_ff
     return flops
+
+
+def _mamba2_flops_per_token(cfg: ArchConfig) -> float:
+    d, s = cfg.d_model, cfg.ssm
+    di = s.d_inner(d)
+    nh = s.n_ssm_heads(d)
+    proj = 2 * d * (2 * di + 2 * s.n_groups * s.d_state + nh) + 2 * di * d
+    chunk = 2 * s.chunk_size * nh * (s.d_state + s.head_dim)  # SSD intra
+    scan = 6 * di * s.d_state
+    return proj + chunk + scan
 
 
 def _attn_flops_per_token(cfg: ArchConfig, seq_len: int) -> float:
@@ -142,10 +160,17 @@ def partition_costs(costs: Sequence[float], n_parts: int) -> list[int]:
 
 
 def balance_report(cfg: ArchConfig, plan: StagePlan, seq_len: int) -> dict:
-    """Per-stage FLOPs loads + imbalance factor (max/mean)."""
-    per_layer = layer_flops_per_token(cfg, seq_len)
-    loads = [plan.real_layers_in_stage(s) * per_layer
-             for s in range(plan.n_stages)]
+    """Per-stage FLOPs loads + imbalance factor (max/mean); a mixed stack's
+    stages sum their own layers' costs."""
+    if cfg.layer_types:
+        loads = [sum(layer_flops_per_token(cfg, seq_len, i)
+                     for i in range(plan.layer_offset(s), plan.layer_offset(s)
+                                    + plan.real_layers_in_stage(s)))
+                 for s in range(plan.n_stages)]
+    else:
+        per_layer = layer_flops_per_token(cfg, seq_len)
+        loads = [plan.real_layers_in_stage(s) * per_layer
+                 for s in range(plan.n_stages)]
     mean = sum(loads) / len(loads)
     return {
         "per_stage_flops_per_token": loads,

@@ -182,8 +182,13 @@ def check_runnable(eng: EngineConfig) -> None:
             "make_serve_step(..., layout=))")
 
 
-def check_layout(eng: EngineConfig, layout) -> None:
-    """The layout's (pod, data, model) grid must be the engine's."""
+def check_layout(eng: EngineConfig, layout, cfg=None) -> None:
+    """The layout's (pod, data, model) grid must be the engine's, and the
+    stack's layers all of one kind (a mixed stack's layers are a list,
+    which the placement's stage slices do not split)."""
+    if cfg is not None and cfg.layer_types:
+        raise ValueError(f"{cfg.name}: a stack of mixed layer kinds runs on "
+                         f"one device (no layout)")
     want = (eng.pod_size, eng.data_size, eng.n_stages)
     if tuple(layout.devices.shape) != want:
         raise ValueError(f"the engine's (pod, data, model) sizes {want} do "
@@ -311,7 +316,7 @@ def place_trial_params(cfg: ArchConfig, eng: EngineConfig, params, layout):
     ``[p][d][s]`` of device ``(p, d, s)``'s own tree (its leaves the local
     shards of :func:`param_splits`, each a fresh contiguous tensor on that
     device, so replicas never alias). ``params`` is left as it was."""
-    check_layout(eng, layout)
+    check_layout(eng, layout, cfg)
     splits = param_splits(cfg, eng)
 
     def local(p, d, s):
@@ -443,7 +448,7 @@ def vp_loss(cfg: ArchConfig, eng: EngineConfig, norm_p, head_k, y, labels):
     the reference's stop_gradient), per-shard sums of exp summed over the
     shards, and the label's logit from the shard that owns it."""
     x = lm.final_norm_apply(cfg, norm_p, y)
-    logits = (x @ head_k).float()  # (b, s, Vp)
+    logits = lm.head_logits(cfg, x, head_k).float()  # (b, s, Vp)
     vp, S = logits.shape[-1], eng.n_stages
     gid = torch.arange(vp, device=logits.device)
     logits = logits.masked_fill(gid >= cfg.vocab_size, -1e30)
@@ -458,7 +463,7 @@ def vp_loss(cfg: ArchConfig, eng: EngineConfig, norm_p, head_k, y, labels):
 def plain_loss(cfg: ArchConfig, eng: EngineConfig, norm_p, head_k, y,
                labels):
     x = lm.final_norm_apply(cfg, norm_p, y)
-    return lm.cross_entropy(x @ head_k, labels)
+    return lm.cross_entropy(lm.head_logits(cfg, x, head_k), labels)
 
 
 # ---------------------------------------------------------------------------
@@ -468,15 +473,14 @@ def plain_loss(cfg: ArchConfig, eng: EngineConfig, norm_p, head_k, y,
 
 def unstack_trials(params):
     """The trial-stacked parameter dict -> a list over K of per-trial dicts
-    whose ``"layers"`` is a list of per-layer dicts (all views)."""
+    whose ``"layers"`` is a list of per-layer dicts (all views; a mixed
+    stack's layers are a list already, each leaf trial-stacked)."""
     n_k = params["embed"]["tok"].shape[0]
-    n_l = tree_leaves(params["layers"])[0].shape[1]
     out = []
     for k in range(n_k):
         p_k = lm.layer_slice({n: v for n, v in params.items()
                               if n != "layers"}, k)
-        layers_k = lm.layer_slice(params["layers"], k)
-        p_k["layers"] = [lm.layer_slice(layers_k, i) for i in range(n_l)]
+        p_k["layers"] = lm.layer_list(lm.layer_slice(params["layers"], k))
         out.append(p_k)
     return out
 
@@ -507,9 +511,11 @@ def _hop(x, dst):
 
 
 def _train_loss(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
-                trials, batch):
+                trials, batch, unit_params=None):
     """The tick loop of :func:`pipeline_train_loss` over per-trial
-    parameter dicts (see :func:`unstack_trials`). batch: tokens / labels
+    parameter dicts (see :func:`unstack_trials`), or, with
+    ``unit_params(k, lo, hi)``, over the dict it returns for each unit
+    (trial ``k``, layers [lo, hi)). batch: tokens / labels
     (K, M, mb_global, seq) tensors on the parameters' device, plus
     ``frontend_embeds`` (K, M, mb_global, nf, d), which replace the first
     nf embedded rows of every slot, and the M-RoPE archs' ``mrope_pos``
@@ -532,13 +538,14 @@ def _train_loss(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
         """One (stage, slot) pair: embed at stage 0, the stage's layers,
         the loss at the last stage."""
         with _unit_span(eng, s, k, m, tokens.device):
-            p = trials[k]
+            lo = s * l_s
+            p = trials[k] if unit_params is None else unit_params(
+                k, lo, lo + l_s)
             if s == 0:
                 x = embed(cfg, eng, p["embed"], tokens[k, m], pos,
                           opts.compute_dtype)
                 if fe is not None:
                     x = lm.replace_frontend_rows(x, fe[k, m])
-            lo = s * l_s
             # a hybrid trial's one shared block serves every stage's sites:
             # its gradients from all stages add up in the one backward()
             # (the reference's psum over the stage axis)
@@ -549,7 +556,7 @@ def _train_loss(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
                 layer_mask=[lo + i < cfg.n_layers for i in range(l_s)],
                 layer_offset=lo, n_shards=eng.data_size)
             if s == S - 1:
-                return loss_fn(cfg, eng, p["final_norm"], p["head"], x,
+                return loss_fn(cfg, eng, p["final_norm"], lm.head_of(p), x,
                                labels[k, m]), aux
             return x, aux
 
@@ -635,6 +642,34 @@ def _grad_leaves(params, grads):
         return t
 
     return tree_map(leaf, unstack_trials(params), unstack_trials(grads))
+
+
+def _unit_grad_leaves(params, grads):
+    """fn(k, lo, hi) -> trial ``k``'s parameters for one (stage, slot) unit
+    of a mixed stack: the layers [lo, hi) (None elsewhere in the list) and
+    the leaves outside the stack, as fresh leaves like
+    :func:`_grad_leaves`', a set a unit. A leaf that several units use has
+    one AccumulateGrad node, and autograd holds the sum of the gradients
+    that reach it until the last use's arrives: a gradient-sized buffer
+    for each leaf still awaited, beside ``grads`` (up to the whole model's
+    gradient). With a leaf per unit each gradient adds into ``grads`` when
+    it is computed, in the same order, so the sums are the same."""
+    def leaf(k):
+        def one(p, g):
+            t = p[k].detach().requires_grad_()
+            t.grad = g[k]
+            return t
+        return one
+
+    def unit(k, lo, hi):
+        out = {n: tree_map(leaf(k), v, grads[n])
+               for n, v in params.items() if n != "layers"}
+        out["layers"] = [None] * lo + [
+            tree_map(leaf(k), params["layers"][i], grads["layers"][i])
+            for i in range(lo, hi)]
+        return out
+
+    return unit
 
 
 def reduce_grads(cfg: ArchConfig, eng: EngineConfig, grads):
@@ -904,7 +939,7 @@ def _make_placed_train_step(cfg: ArchConfig, opts: ModelOptions,
                             eng: EngineConfig, optimizer, layout,
                             tracer) -> Callable:
     """:func:`make_train_step` on a device layout (see there)."""
-    check_layout(eng, layout)
+    check_layout(eng, layout, cfg)
     bufs = {}
 
     def step_fn(tr, params, opt_state, batch, hparams, step):
@@ -935,8 +970,8 @@ def _make_placed_train_step(cfg: ArchConfig, opts: ModelOptions,
                 params, grads, opt_state, hparams, step, grad_norm=gnorm)
         with tr.span("train.readback"):
             loss = _replica_mean(layout, [v.detach() for v in losses])
-            met = {"loss": loss.cpu().numpy(),
-                   "grad_norm": gnorm.cpu().numpy()}
+            met = {"loss": tr.read_back(loss),
+                   "grad_norm": tr.read_back(gnorm)}
         return params, opt_state, met
 
     return _traced(step_fn, tracer)
@@ -989,8 +1024,13 @@ def make_train_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
         with tr.span("train.batch"):
             batch = _train_batch(batch, params["embed"]["tok"].device)
         with tr.span("train.forward"):
-            loss_vec, aux_vec = _train_loss(
-                cfg, opts, eng, _grad_leaves(params, grads), batch)
+            if cfg.layer_types:  # a mixed stack: a leaf set a unit
+                loss_vec, aux_vec = _train_loss(
+                    cfg, opts, eng, None, batch,
+                    _unit_grad_leaves(params, grads))
+            else:
+                loss_vec, aux_vec = _train_loss(
+                    cfg, opts, eng, _grad_leaves(params, grads), batch)
             total = loss_vec.sum()
             if cfg.moe is not None:
                 total = total + cfg.moe.load_balance_coef * aux_vec.sum()
@@ -1004,8 +1044,7 @@ def make_train_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
         with tr.span("train.readback"):
             # (on ``meta`` — the dry-run's counting pass — there is
             # nothing to read back: the metrics stay tensors)
-            host = (lambda t: t) if gnorm.is_meta else \
-                (lambda t: t.detach().cpu().numpy())
+            host = (lambda t: t) if gnorm.is_meta else tr.read_back
             met = {"loss": host(loss_vec), "grad_norm": host(gnorm)}
         return params, opt_state, met
 
@@ -1021,6 +1060,9 @@ def _check_family(cfg: ArchConfig) -> None:
     if cfg.family == "mlp":
         raise ValueError("the mlp workload has no serving path (no "
                          "sequence, no cache)")
+    if cfg.family == "hybrid_moe":
+        raise ValueError(f"{cfg.name}: the hybrid_moe family trains only "
+                         f"(no serving path)")
 
 
 def shared_slots_per_stage(cfg: ArchConfig, plan: StagePlan) -> int:

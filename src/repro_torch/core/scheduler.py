@@ -90,7 +90,9 @@ def per_chip_bytes(cfg: ArchConfig, eng: EngineConfig, seq_len: int,
     :func:`state_bytes` of fp32: ``opt_bytes_per_param`` counts the
     gradient buffer and m, v."""
     plan = plan_stages(cfg, eng.n_stages)
-    layer_p = cfg.layer_param_count() * plan.layers_per_stage
+    layer_p = max(cfg.stack_param_count(plan.layer_offset(s),
+                                        plan.layers_per_stage)
+                  for s in range(eng.n_stages))
     if eng.fsdp:
         layer_p = math.ceil(layer_p / eng.data_size)
     vocab_p = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)

@@ -42,8 +42,8 @@ import torch
 
 from repro_torch.analysis import costs as costs_lib
 from repro_torch.analysis import roofline as roof
-from repro_torch.configs import (ASSIGNED_ARCHS, PAPER_ARCHS, SHAPES,
-                                 shape_applicable)
+from repro_torch.configs import (ASSIGNED_ARCHS, EXTRA_ARCHS, PAPER_ARCHS,
+                                 SHAPES, shape_applicable)
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core import pipeline as pl
 from repro_torch.core import scheduler as sched
@@ -239,6 +239,10 @@ def cell_costs(cfg: ArchConfig, shape: ShapeConfig, eng: pl.EngineConfig,
     if eng.n_stages != 1:
         raise ValueError("the loop-aware count runs on the card layout "
                          "(one stage)")
+    if cfg.layer_types:
+        raise ValueError(f"{cfg.name}: the loop-aware count extrapolates a "
+                         f"stack of one layer kind; a mixed stack's card "
+                         f"cell is not counted")
     counted = counted or {}
 
     def at(p):
@@ -254,7 +258,8 @@ def cell_costs(cfg: ArchConfig, shape: ShapeConfig, eng: pl.EngineConfig,
 
 def _count_task(arch: str, shape_name: str, overrides: dict, point):
     """One count of a card-layout cell (a worker process's task)."""
-    cfg, shape = (ASSIGNED_ARCHS | PAPER_ARCHS)[arch], SHAPES[shape_name]
+    cfg = (ASSIGNED_ARCHS | PAPER_ARCHS | EXTRA_ARCHS)[arch]
+    shape = SHAPES[shape_name]
     eng = engine_for_cell(cfg, shape, make_card_mesh(), overrides)
     return count_at(cfg, shape, eng, model_options(overrides), *point)
 
@@ -408,7 +413,8 @@ def main(argv=None):
     if args.paper_archs:
         archs["bert-large"] = PAPER_ARCHS["bert-large"]
     if args.arch:
-        archs = {args.arch: (ASSIGNED_ARCHS | PAPER_ARCHS)[args.arch]}
+        archs = {args.arch:
+                 (ASSIGNED_ARCHS | PAPER_ARCHS | EXTRA_ARCHS)[args.arch]}
     shapes = [SHAPES[args.shape]] if args.shape else list(SHAPES.values())
     if args.layout == CARD_LAYOUT_NAME:
         meshes = [make_card_mesh()]

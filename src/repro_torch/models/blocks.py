@@ -1,5 +1,6 @@
 """Attention, MoE, Mamba1 and hybrid blocks and the KV-cache ops in
-PyTorch.
+PyTorch, and the hybrid_moe family's layer (a Mamba2 or attention mixer
+by layer, then a MoE with a shared expert; training only).
 
 Port of ``repro/models/blocks.py`` for the dense attention family (with
 the ``audio`` and ``vlm`` backbones and the non-causal ``encoder``), the
@@ -30,12 +31,15 @@ state untouched.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ModelOptions
+from repro_torch.obs import tracer as obs_tracer
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +156,9 @@ def attn_apply(cfg: ArchConfig, opts: ModelOptions, p, x, *, pos,
     v = (x @ p["wv"]).reshape(b, s, hkv, hd)
     q = L.apply_rope(q, pos, cfg)
     k = L.apply_rope(k, pos, cfg)
+    if cfg.attention_multiplier:
+        # the config's own scale, in place of every path's 1 / sqrt(hd)
+        q = q * (cfg.attention_multiplier * math.sqrt(hd))
     if mode == "train":
         out = L.attention(q, k, v, causal=causal, window=window, opts=opts)
     elif mode == "prefill":
@@ -343,9 +350,48 @@ def shared_attn_block(cfg, opts, p, x, *, pos, cache=None, kv_offset=None,
     return x + L.mlp_apply(p["mlp"], h, "swiglu"), cache
 
 
+def hybrid_moe_block(cfg, opts, p, x, *, pos, cache=None, kv_offset=None,
+                     mode="train", window: int = 0, block_tables=None,
+                     write_mask=None, q_lens=None, n_shards: int = 1,
+                     layer: int = 0):
+    """A hybrid_moe layer (HF ``GraniteMoeHybridDecoderLayer``): ``x + r ·
+    mixer(rms(x))``, then ``x + r · (moe(h) + shared(h))`` with ``h =
+    rms(x)``, ``r`` the residual multiplier. The mixer is Mamba2 where the
+    layer holds ``mamba`` (a mixed stack's layer holds one mixer's
+    weights), else NoPE GQA attention at the config's scale (K1 in
+    training). The MoE routes each data shard over all experts and
+    computes the held experts' part (``layers.moe_apply``). Train mode
+    only; under the current tracer the mixer is a ``train.mixer`` span
+    (``kind``, ``layer``: the global index) and the MoE a ``train.moe``
+    span."""
+    if mode != "train" or cache is not None:
+        raise ValueError("the hybrid_moe family trains only (no cache)")
+    tr = obs_tracer.current()
+    r = cfg.residual_multiplier
+    kind = "mamba2" if "mamba" in p else "attention"
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    with (tr.span("train.mixer", tr.train_pass, kind=kind, layer=layer)
+          if tr.enabled else obs_tracer.NO_SPAN):
+        if kind == "mamba2":
+            y = L.mamba2_mix(p["mamba"], h, cfg, opts=opts)[0]
+        else:
+            y = attn_apply(cfg, opts, p["attn"], h, pos=pos, mode=mode)[0]
+    x = x + r * y
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    with (tr.span("train.moe", tr.train_pass, layer=layer)
+          if tr.enabled else obs_tracer.NO_SPAN):
+        m, aux = L.moe_apply(p["moe"], h, n_experts=cfg.moe.n_experts,
+                             top_k=cfg.moe.top_k,
+                             capacity_factor=opts.moe_capacity_factor,
+                             act=cfg.act, expert_chunk=opts.moe_expert_chunk,
+                             n_shards=n_shards, held=cfg.held_experts)
+    return x + r * m, cache, aux
+
+
 BLOCK_FNS = {"dense": dense_block, "audio": dense_block,
              "vlm": dense_block, "encoder": dense_block, "moe": moe_block,
-             "ssm": ssm_block, "hybrid": hybrid_backbone_block}
+             "ssm": ssm_block, "hybrid": hybrid_backbone_block,
+             "hybrid_moe": hybrid_moe_block}
 
 
 def block_fn_for(cfg: ArchConfig):

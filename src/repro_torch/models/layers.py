@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.obs import tracer as obs_tracer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,12 +52,13 @@ class ModelOptions:
 def kernel_options(cfg: ArchConfig, **kw) -> ModelOptions:
     """Options with the kernel of ``cfg``'s family's path on — K1
     (``use_flash_kernel``) for the attention of the dense, moe, audio, vlm
-    and encoder (non-causal) families and the hybrid family's shared
-    block, K3 (``use_mamba_kernel``) for the ssm family's scans — and
-    ``kw`` (the launchers' choice)."""
+    and encoder (non-causal) families, the hybrid family's shared block
+    and the hybrid_moe family's attention layers, K3
+    (``use_mamba_kernel``) for the ssm family's scans — and ``kw`` (the
+    launchers' choice)."""
     return ModelOptions(
         use_flash_kernel=cfg.family in ("dense", "moe", "hybrid", "audio",
-                                        "vlm", "encoder"),
+                                        "vlm", "encoder", "hybrid_moe"),
         use_mamba_kernel=cfg.family == "ssm", **kw)
 
 
@@ -352,7 +354,8 @@ def moe_route(router, x, *, n_experts: int, top_k: int,
 
 
 def moe_apply(p, x, *, n_experts: int, top_k: int, capacity_factor: float,
-              act: str = "swiglu", expert_chunk: int = 0, n_shards: int = 1):
+              act: str = "swiglu", expert_chunk: int = 0, n_shards: int = 1,
+              held=None):
     """Top-k MoE FFN. x (b, s, d) -> ((b, s, d), load-balance aux).
 
     Each of ``n_shards`` contiguous groups of ``b / n_shards`` rows is
@@ -361,11 +364,24 @@ def moe_apply(p, x, *, n_experts: int, top_k: int, capacity_factor: float,
     ranks and drops, its own Switch aux; the shards ride a leading axis of
     batched ops, and the aux returned is the mean over shards. Overflowing
     picks are dropped (the residual path keeps those tokens); the expert
-    products run dense over the (E, C) buckets and the gate-weighted
-    gather brings them back, gates cast to x's dtype. Nothing here waits
-    on the host: a dropped pick is scattered into a scratch row past the
-    E · C bucket rows and gathered back from a zero row, both sliced away,
-    so no mask ever becomes an index list.
+    products run dense over the (E, C) buckets, each row filled from its
+    token and added back to it times its gate (gates cast to x's dtype).
+    Nothing here waits on the host: a dropped pick is scattered into a
+    scratch row past the E · C bucket rows, sliced away, and an empty row
+    reads and writes a zero row past the tokens, so no mask ever becomes
+    an index list.
+
+    ``held`` (first id, count): the experts whose weights ``p`` holds (one
+    card's share under expert parallelism; None: all ``n_experts``).
+    Routing, capacity and the aux stay over all experts; picks of the
+    held experts fill their buckets, and picks of the others go to the
+    scratch row as dropped picks do, so the result is the held experts'
+    part of the layer's. ``p["shared"]``, where present, is a shared
+    SwiGLU expert that every token passes through, added to the result.
+    In the forward pass of a train step with an enabled tracer
+    (``obs.tracer.current()``) it counts ``moe_bucket_rows`` (held experts
+    × capacity × shards) and, on the device, ``moe_local_picks`` (picks
+    of the held experts) and ``moe_dropped_picks`` (those past capacity).
     """
     b, s, d = x.shape
     g_n, e_n, k = n_shards, n_experts, top_k
@@ -374,25 +390,50 @@ def moe_apply(p, x, *, n_experts: int, top_k: int, capacity_factor: float,
         capacity_factor=capacity_factor, n_shards=g_n)
     t = b // g_n * s
     flat_e = expert_idx.reshape(g_n, t * k)
-    rows = e_n * cap + 1  # bucket rows per shard, the scratch row last
-    dest = torch.where(rank < cap, flat_e * cap + rank,
+    first, e_h = (0, e_n) if held is None else held
+    rows = e_h * cap + 1  # bucket rows per shard, the scratch row last
+    if held is None:
+        local_e, mine, keep = flat_e, None, rank < cap
+    else:
+        local_e = flat_e - first  # the held experts' ids from 0
+        mine = (local_e >= 0) & (local_e < e_h)
+        keep = (rank < cap) & mine
+    dest = torch.where(keep, local_e * cap + rank,
                        torch.full_like(rank, rows - 1))
-    dest = dest + torch.arange(g_n, device=x.device)[:, None] * rows
-    src = x.reshape(g_n, t, 1, d).expand(g_n, t, k, d).reshape(g_n * t * k, d)
-    buckets = torch.zeros((g_n * rows, d), dtype=x.dtype, device=x.device)
-    buckets = buckets.index_add(0, dest.reshape(-1), src)
+    tr = obs_tracer.current()
+    if tr.enabled and tr.train_pass == "forward":
+        tr.count("moe_bucket_rows", g_n * e_h * cap)
+        routed = rank >= 0 if mine is None else mine
+        tr.count_on_device(("moe_local_picks", "moe_dropped_picks"),
+                           torch.stack([routed.sum(),
+                                        (routed & ~keep).sum()]))
+    dest = (dest + torch.arange(g_n, device=x.device)[:, None] * rows
+            ).reshape(-1)
+    # each bucket row's token and gate, scattered from the picks: an empty
+    # row takes the zero row past the tokens and gate 0, a scratch row
+    # whichever pick wrote it last (it is sliced away); so the buckets and
+    # the combine move E·C rows of d, never t·k
+    n_tok = g_n * t
+    row_tok = torch.full((g_n * rows,), n_tok, dtype=torch.long,
+                         device=x.device).scatter_(
+        0, dest, torch.arange(n_tok, device=x.device).repeat_interleave(k))
+    row_gate = torch.zeros((g_n * rows,), dtype=x.dtype,
+                           device=x.device).scatter(
+        0, dest, gate_vals.reshape(-1).to(x.dtype))
+    live = row_tok.reshape(g_n, rows)[:, :-1].reshape(-1)
+    x_rows = torch.cat([x.reshape(n_tok, d), x.new_zeros((1, d))])
     # (G, E·C) live rows -> (E, G·C, d): one bmm per projection over all
     # shards' buckets
-    buckets = (buckets.reshape(g_n, rows, d)[:, :-1]
-               .reshape(g_n, e_n, cap, d).transpose(0, 1)
-               .reshape(e_n, g_n * cap, d))
+    buckets = (x_rows.index_select(0, live).reshape(g_n, e_h, cap, d)
+               .transpose(0, 1).reshape(e_h, g_n * cap, d))
     w = [p[n] for n in ("w_gate", "w_up", "w_down")] if act == "swiglu" \
         else [None, p["w_up"], p["w_down"]]
-    if expert_chunk and 0 < expert_chunk < e_n and e_n % expert_chunk == 0:
+    if expert_chunk and 0 < expert_chunk < e_h and e_h % expert_chunk == 0:
         record = torch.is_grad_enabled() and (
-            x.requires_grad or any(t_.requires_grad for t_ in p.values()))
+            x.requires_grad or any(w_ is not None and w_.requires_grad
+                                   for w_ in w))
         ys = []
-        for e0 in range(0, e_n, expert_chunk):
+        for e0 in range(0, e_h, expert_chunk):
             part = [None if w_ is None else w_[e0:e0 + expert_chunk]
                     for w_ in w]
             args = (*part, buckets[e0:e0 + expert_chunk], act)
@@ -402,18 +443,19 @@ def moe_apply(p, x, *, n_experts: int, top_k: int, capacity_factor: float,
         y = torch.cat(ys)
     else:
         y = _expert_ffn(*w, buckets, act)
-    y = y.reshape(e_n, g_n, cap, d).transpose(0, 1).reshape(g_n, e_n * cap, d)
-    y = torch.cat([y, y.new_zeros((g_n, 1, d))], dim=1)  # the zero row
-    gathered = y.reshape(g_n * rows, d).index_select(0, dest.reshape(-1))
-    out = torch.einsum("gtkd,gtk->gtd", gathered.reshape(g_n, t, k, d),
-                       gate_vals.to(x.dtype))
+    y = y.reshape(e_h, g_n, cap, d).transpose(0, 1).reshape(-1, d)
+    gate = row_gate.reshape(g_n, rows)[:, :-1].reshape(-1, 1)
+    out = torch.zeros((n_tok + 1, d), dtype=x.dtype, device=x.device
+                      ).index_add(0, live, y * gate)[:n_tok].reshape(b, s, d)
+    if "shared" in p:
+        out = out + mlp_apply(p["shared"], x, "swiglu")
 
-    # load-balance auxiliary loss (Switch-style), per shard
+    # load-balance auxiliary loss (Switch-style), per shard, over all experts
     me = probs.mean(dim=1)  # (G, E)
     ce = torch.zeros((g_n, e_n), device=x.device).scatter_add_(
         1, flat_e, torch.ones(flat_e.shape, device=x.device)) / (t * k)
     aux = e_n * (me * ce).sum(dim=-1)
-    return out.reshape(b, s, d), aux.mean()
+    return out, aux.mean()
 
 
 # ---------------------------------------------------------------------------
@@ -529,10 +571,12 @@ def mamba1_mix(p, x, cfg: ArchConfig, ssm_state=None, conv_state=None,
 
 def _ssd_chunk(h_enter, da_k, xh_k, bm_k, cm_k, dt_k, v_k):
     """One chunk of the state-space dual form: h_enter (b, nh, hd, n) fp32;
-    da / dt (b, ck, nh), xh (b, ck, nh, hd), bm / cm (b, ck, nh, n), all
-    fp32; v_k (ck,) marks the real (unpadded) steps. Returns (h_exit,
-    y (b, ck, nh, hd))."""
+    da / dt (b, ck, nh), xh (b, ck, nh, hd), bm / cm (b, ck, g, n) (each
+    group's, repeated here to its nh / g heads), all fp32; v_k (ck,) marks
+    the real (unpadded) steps. Returns (h_exit, y (b, ck, nh, hd))."""
     ck = da_k.shape[1]
+    rep = xh_k.shape[2] // bm_k.shape[2]
+    bm_k, cm_k = (t.repeat_interleave(rep, dim=2) for t in (bm_k, cm_k))
     # padded steps: no decay (log-decay 0), no input (x already 0)
     da_k = torch.where(v_k[None, :, None], da_k, torch.zeros_like(da_k))
     cum = torch.cumsum(da_k, dim=1)  # (b, ck, nh), inclusive
@@ -587,9 +631,8 @@ def mamba2_mix(p, x, cfg: ArchConfig, ssm_state=None, conv_state=None,
     dt = F.softplus(dt_in.float() + p["dt_bias"])  # (b, s, nh)
     a = -torch.exp(p["A_log"].float())  # (nh,)
     xh = xin.reshape(b, s, nh, hd)
-    rep = nh // g
-    bm = bmat.reshape(b, s, g, n).repeat_interleave(rep, dim=2)  # (b,s,nh,n)
-    cm = cmat.reshape(b, s, g, n).repeat_interleave(rep, dim=2)
+    bm = bmat.reshape(b, s, g, n)  # each group's B / C, shared by its
+    cm = cmat.reshape(b, s, g, n)  # nh / g heads
     da = dt * a  # (b, s, nh) log-decay per step (<= 0)
 
     if ssm_state is None:
@@ -597,6 +640,7 @@ def mamba2_mix(p, x, cfg: ArchConfig, ssm_state=None, conv_state=None,
                                 device=x.device)
 
     if s == 1:
+        bm, cm = (t.repeat_interleave(nh // g, dim=2) for t in (bm, cm))
         dbx = (dt[:, 0, :, None, None] * xh[:, 0, :, :, None].float()
                * bm[:, 0, :, None, :].float())  # (b, nh, hd, n)
         new_state = (torch.exp(da[:, 0])[:, :, None, None] * ssm_state
@@ -607,10 +651,10 @@ def mamba2_mix(p, x, cfg: ArchConfig, ssm_state=None, conv_state=None,
         ck = min(s_cfg.chunk_size, s)
         s_p = -(-s // ck) * ck
         pad = s_p - s
-        da_p = F.pad(da, (0, 0, 0, pad))
-        dt_p = F.pad(dt, (0, 0, 0, pad))
-        xh_p, bm_p, cm_p = (F.pad(t.float(), (0, 0, 0, 0, 0, pad))
-                            for t in (xh, bm, cm))
+        da_p, dt_p = (F.pad(t, (0, 0, 0, pad)) if pad else t
+                      for t in (da, dt))
+        xh_p, bm_p, cm_p = (F.pad(t.float(), (0, 0, 0, 0, 0, pad)) if pad
+                            else t.float() for t in (xh, bm, cm))
         valid = torch.arange(s_p, device=x.device) < s
         record = torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, *p.values()))

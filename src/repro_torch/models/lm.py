@@ -76,33 +76,62 @@ def _ssm_layers(cfg: ArchConfig, nl: int, nrm, ones, gen, dtype, device):
     }
 
 
-def _hybrid_layers(cfg: ArchConfig, nl: int, nrm, ones, gen, dtype, device):
-    """Mamba2 backbone layer leaves (leading ``nl`` axis), as the
-    reference's ``init_layer_params``: per-head ``dt_bias`` (softplus^-1 of
-    dt drawn log-uniform in [1e-3, 1e-1]), ``A_log = log(1..nh)``, ``D =
-    1``, all three fp32 whatever ``dtype``."""
+def _mamba2_params(cfg: ArchConfig, lead: tuple, nrm, ones, gen, dtype,
+                   device):
+    """A Mamba2 mixer's leaves (leading ``lead`` axes), as the reference's
+    ``init_layer_params``: per-head ``dt_bias`` (softplus^-1 of dt drawn
+    log-uniform in [1e-3, 1e-1]), ``A_log = log(1..nh)``, ``D = 1``, all
+    three fp32 whatever ``dtype``."""
     s, d = cfg.ssm, cfg.d_model
     di, n, g = s.d_inner(d), s.d_state, s.n_groups
     nh = s.n_ssm_heads(d)
     conv_dim = di + 2 * g * n
     lo, hi = math.log(1e-3), math.log(1e-1)
-    dt = torch.exp(torch.rand((nl, nh), generator=gen, device=device)
+    dt = torch.exp(torch.rand(lead + (nh,), generator=gen, device=device)
                    * (hi - lo) + lo)
     a_log = torch.log(torch.arange(1, nh + 1, dtype=torch.float32,
                                    device=device))
     return {
-        "ln": ones(nl, d),
-        "mamba": {
-            "in_proj": nrm((nl, d, 2 * di + 2 * g * n + nh), d),
-            "conv_w": nrm((nl, conv_dim, s.d_conv), s.d_conv),
-            "conv_b": torch.zeros((nl, conv_dim), dtype=dtype, device=device),
-            "dt_bias": dt + torch.log1p(-torch.exp(-dt)),
-            "A_log": a_log.expand(nl, nh).contiguous(),
-            "D": torch.ones((nl, nh), dtype=torch.float32, device=device),
-            "norm_w": ones(nl, di),
-            "out_proj": nrm((nl, di, d), di),
-        },
+        "in_proj": nrm(lead + (d, 2 * di + 2 * g * n + nh), d),
+        "conv_w": nrm(lead + (conv_dim, s.d_conv), s.d_conv),
+        "conv_b": torch.zeros(lead + (conv_dim,), dtype=dtype, device=device),
+        "dt_bias": dt + torch.log1p(-torch.exp(-dt)),
+        "A_log": a_log.expand(lead + (nh,)).contiguous(),
+        "D": torch.ones(lead + (nh,), dtype=torch.float32, device=device),
+        "norm_w": ones(*lead, di),
+        "out_proj": nrm(lead + (di, d), di),
     }
+
+
+def _hybrid_layers(cfg: ArchConfig, nl: int, nrm, ones, gen, dtype, device):
+    """Mamba2 backbone layer leaves (leading ``nl`` axis)."""
+    return {"ln": ones(nl, cfg.d_model),
+            "mamba": _mamba2_params(cfg, (nl,), nrm, ones, gen, dtype,
+                                    device)}
+
+
+def _hybrid_moe_layers(cfg: ArchConfig, nl: int, nrm, ones, gen, dtype,
+                       device) -> list:
+    """A mixed stack: a list of ``nl`` layer dicts, each with its own
+    leaves and no layer axis. A real layer holds its mixer (``mamba`` or
+    ``attn``, by ``cfg.layer_types``), its MoE with the shared expert and
+    two pre-norms; a stage-padding layer holds nothing."""
+    d = cfg.d_model
+    out = []
+    for i in range(nl):
+        kind = cfg.layer_kind(i)
+        if kind is None:
+            out.append({})
+            continue
+        layer = {"ln1": ones(d), "ln2": ones(d),
+                 "moe": _moe_params(cfg, (), nrm)}
+        if kind == "mamba":
+            layer["mamba"] = _mamba2_params(cfg, (), nrm, ones, gen, dtype,
+                                            device)
+        else:
+            layer["attn"] = _attn_params(cfg, (), nrm)
+        out.append(layer)
+    return out
 
 
 def _attn_params(cfg: ArchConfig, lead: tuple, nrm):
@@ -114,13 +143,19 @@ def _attn_params(cfg: ArchConfig, lead: tuple, nrm):
 
 
 def _moe_params(cfg: ArchConfig, lead: tuple, nrm):
-    """The moe family's FFN: router (d, E), w_gate / w_up (E, d, f) and
-    w_down (E, f, d), as the reference's ``init_layer_params``."""
+    """The moe family's FFN: router (d, E), w_gate / w_up (E_held, d, f)
+    and w_down (E_held, f, d) of the held experts (all E but where the
+    config holds a share), as the reference's ``init_layer_params``; and
+    ``shared`` (a SwiGLU MLP) where the config has a shared expert."""
     d, e, f = cfg.d_model, cfg.moe.n_experts, cfg.moe.expert_d_ff
-    return {"router": nrm(lead + (d, e), d),
-            "w_gate": nrm(lead + (e, d, f), d),
-            "w_up": nrm(lead + (e, d, f), d),
-            "w_down": nrm(lead + (e, f, d), f)}
+    held = cfg.held_experts[1]
+    out = {"router": nrm(lead + (d, e), d),
+           "w_gate": nrm(lead + (held, d, f), d),
+           "w_up": nrm(lead + (held, d, f), d),
+           "w_down": nrm(lead + (held, f, d), f)}
+    if cfg.shared_d_ff:
+        out["shared"] = _mlp_params(d, cfg.shared_d_ff, "swiglu", lead, nrm)
+    return out
 
 
 def _mlp_params(d: int, f: int, act: str, lead: tuple, nrm):
@@ -151,9 +186,11 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32,
     """Full model parameter dict (every family but ``mlp``, which has
     :func:`mlp_init`); layer leaves get a leading ``n_layers`` axis
     (``n_layers`` may exceed ``cfg.n_layers`` — stage padding; padded
-    layers are masked at apply time); hybrid archs add the ``"shared"``
-    block. The encoder's norms are layer norms with biases (``ln1_w`` /
-    ``ln1_b`` / ``ln2_w`` / ``ln2_b``, ``final_norm`` {"w", "b"}), and
+    layers are masked at apply time), except a mixed stack's
+    (``cfg.layer_types``), whose ``"layers"`` is a list of ``n_layers``
+    per-layer dicts; hybrid archs add the ``"shared"`` block. The
+    encoder's norms are layer norms with biases (``ln1_w`` / ``ln1_b`` /
+    ``ln2_w`` / ``ln2_b``, ``final_norm`` {"w", "b"}), and
     ``rope="learned"`` archs get the position table ``embed/pos``
     (max(max_pos, 1), d). Draws from the torch generator ``gen`` (whose
     device must be ``device``); the numbers differ from the reference's
@@ -172,6 +209,9 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32,
         embed = nrm((cfg.vocab_size, d), 1)
     elif cfg.family == "hybrid":
         layers = _hybrid_layers(cfg, nl, nrm, ones, gen, dtype, device)
+        embed = nrm((cfg.vocab_size, d), 1)
+    elif cfg.family == "hybrid_moe":
+        layers = _hybrid_moe_layers(cfg, nl, nrm, ones, gen, dtype, device)
         embed = nrm((cfg.vocab_size, d), 1)
     else:  # (draw order: MLP or experts, embedding, attention)
         ffn_name = "moe" if cfg.family == "moe" else "mlp"
@@ -238,6 +278,14 @@ def n_stacked_layers(layers) -> int:
 def layer_slice(tree, i):
     """Layer ``i`` of a layer-stacked parameter/cache tree (views)."""
     return tree_map(lambda t: t[i], tree)
+
+
+def layer_list(layers) -> list:
+    """The per-layer dicts of a stack: a mixed stack's own list, or the
+    views of a layer-stacked tree."""
+    if isinstance(layers, list):
+        return layers
+    return [layer_slice(layers, i) for i in range(n_stacked_layers(layers))]
 
 
 # ---------------------------------------------------------------------------
@@ -349,12 +397,14 @@ def stack_apply(cfg: ArchConfig, opts: ModelOptions, layer_params, x, *,
         if not layer_mask[i]:
             continue
         p_i = layer_params[i]
+        # a mixed stack's block names the layer in its spans
+        at = {"layer": layer_offset + i} if cfg.layer_types else {}
         c_i = None if cache is None else layer_slice(cache["layers"], i)
         use_sh = shared_params is not None and flags[i]
         sc_i = (layer_slice(sh_cache, slots[i])
                 if use_sh and sh_cache is not None else None)
 
-        def run(x, i=i, p_i=p_i, c_i=c_i, use_sh=use_sh, sc_i=sc_i):
+        def run(x, i=i, p_i=p_i, c_i=c_i, use_sh=use_sh, sc_i=sc_i, at=at):
             with (tr.span("train.layer", tr.train_pass,
                           layer=layer_offset + i, dev=str(x.device))
                   if tr.enabled else obs_tracer.NO_SPAN):
@@ -364,7 +414,7 @@ def stack_apply(cfg: ArchConfig, opts: ModelOptions, layer_params, x, *,
                                     kv_offset=kv_offset, mode=mode,
                                     window=window, block_tables=block_tables,
                                     write_mask=write_mask, q_lens=q_lens,
-                                    n_shards=n_shards)
+                                    n_shards=n_shards, **at)
                 if use_sh:
                     y = B.shared_attn_block(
                         cfg, opts, shared_params, y, pos=pos, cache=sc_i,
@@ -393,6 +443,8 @@ def embed_tokens(cfg: ArchConfig, p_embed, tokens, *, positions=None,
     x = p_embed["tok"][tokens.long()]
     if compute_dtype is not None:
         x = x.to(compute_dtype)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     if cfg.rope == "learned" and positions is not None:
         tab = p_embed["pos"]
         x = x + tab[positions.long().clamp(max=tab.shape[0] - 1)].to(x.dtype)
@@ -415,12 +467,24 @@ def final_norm_apply(cfg: ArchConfig, p_norm, x):
     return L.rms_norm(x, p_norm, cfg.norm_eps)
 
 
+def head_of(params):
+    """The LM head (d, V): ``head``, or the embedding's transpose where
+    the embeddings are tied."""
+    head = params.get("head")
+    return params["embed"]["tok"].T if head is None else head
+
+
+def head_logits(cfg: ArchConfig, x, head):
+    """x @ head over the config's ``logits_scaling``."""
+    logits = x @ head
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return logits
+
+
 def lm_logits(cfg: ArchConfig, params, x):
     x = final_norm_apply(cfg, params["final_norm"], x)
-    head = params.get("head")
-    if head is None:  # tied embeddings
-        head = params["embed"]["tok"].T
-    return x @ head
+    return head_logits(cfg, x, head_of(params))
 
 
 def cross_entropy(logits, labels, mask=None):
@@ -473,10 +537,9 @@ def forward(cfg: ArchConfig, opts: ModelOptions, params, batch: dict,
                      positions=pos if cfg.rope != "mrope" else None,
                      frontend_embeds=batch.get("frontend_embeds"),
                      compute_dtype=opts.compute_dtype)
-    n_stack = n_stacked_layers(params["layers"])
+    layers = layer_list(params["layers"])
     if layer_mask is None:
-        layer_mask = [i < cfg.n_layers for i in range(n_stack)]
-    layers = [layer_slice(params["layers"], i) for i in range(n_stack)]
+        layer_mask = [i < cfg.n_layers for i in range(len(layers))]
     y, cache, aux = stack_apply(cfg, opts, layers, x, pos=pos,
                                 mode=mode, cache=cache,
                                 shared_params=params.get("shared"),

@@ -64,6 +64,18 @@ counting thread: ``hop_bytes`` (the bytes of each hop),
 CPU makes none) and ``k1_backward`` (each K1 backward call that ran the
 backward kernels, ``kernels/attention_bwd.py``; none on the CPU).
 
+The hybrid_moe family's layers (``models/blocks.py``) add, inside each
+``train.layer``, a ``train.mixer`` span (fields ``kind`` — ``mamba2`` or
+``attention`` — and ``layer``) around the mixer and a ``train.moe`` span
+(field ``layer``) around ``layers.moe_apply`` (route, dispatch, experts,
+combine, shared expert), both with ``pass``. ``moe_apply`` counts, in the
+forward pass only, ``moe_bucket_rows`` (the held experts' bucket rows,
+experts × capacity, on the host) and, on the device (:meth:`Tracer.
+count_on_device`), ``moe_local_picks`` (picks routed to the held experts)
+and ``moe_dropped_picks`` (those of them past their bucket's capacity);
+the device counts reach ``counters`` in the step's own readback
+(:meth:`Tracer.read_back`), so they add no host sync.
+
 Timestamps: ``tick`` is the engine round (set once per round via
 :meth:`begin_tick`; emission sites never thread it), ``wall`` is seconds
 since ``t0_ns``, the tracer's construction or last :meth:`clear` as a
@@ -138,6 +150,7 @@ class Tracer:
         self.t0_ns = time.time_ns()
         self._backward = 0  # open train.backward spans
         self._threads = threading.local()  # each thread's open ranges
+        self._pending: list = []  # device counts not yet read back
 
     # -- timestamps ----------------------------------------------------------
 
@@ -208,6 +221,36 @@ class Tracer:
         by = self.counters.setdefault(name, {})
         by[key] = by.get(key, 0) + n
 
+    def count_on_device(self, names: tuple, values) -> None:
+        """Add the device tensor ``values`` (one entry a name) to
+        ``counters[names[i]]`` under the innermost span open on this
+        thread, once the step reads them back (:meth:`read_back`): no
+        host sync of their own."""
+        stack = self._open()
+        self._pending.append((names, stack[-1] if stack else "", values))
+
+    def read_back(self, t):
+        """``t`` as a numpy array on the host, the device counts pending
+        since the last read back copied with it in the same transfer and
+        added to ``counters``."""
+        import torch
+
+        if not self._pending:
+            return t.detach().cpu().numpy()
+        pending, self._pending = self._pending, []
+        flat = torch.cat([t.detach().reshape(-1).double()] + [
+            v.detach().reshape(-1).to(t.device).double()
+            for _, _, v in pending]).cpu().numpy()
+        at = t.numel()
+        for names, key, _ in pending:
+            for name in names:
+                by = self.counters.setdefault(name, {})
+                by[key] = by.get(key, 0) + int(flat[at])
+                at += 1
+        # t's values went through float64 exactly, and come back so
+        return torch.from_numpy(flat[:t.numel()]).to(t.dtype).reshape(
+            t.shape).numpy()
+
     def watch_syncs(self):
         """A context manager that counts ``host_syncs``: CUDA's sync debug
         mode set to warn (restored after), and each of its warnings
@@ -248,6 +291,7 @@ class Tracer:
     def clear(self) -> None:
         self.events = []
         self.counters = {}
+        self._pending = []
         self.tick = -1
         self.t0_ns = time.time_ns()
 
@@ -291,6 +335,12 @@ class NullTracer:
 
     def count(self, name: str, n: int = 1) -> None:
         pass
+
+    def count_on_device(self, names: tuple, values) -> None:
+        pass
+
+    def read_back(self, t):
+        return t.detach().cpu().numpy()
 
     def watch_syncs(self):
         return NO_SPAN
