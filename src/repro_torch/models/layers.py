@@ -325,6 +325,27 @@ def _expert_ffn(w_gate, w_up, w_down, buckets, act: str):
     return torch.bmm(h, w_down)
 
 
+def moe_ranks(flat_e, n_experts: int):
+    """Each pick's rank in its expert's bucket: for flat expert ids (G, N)
+    in flat (token, pick) order, the number of earlier picks of the same
+    expert in the same row (G, N), int64.
+
+    Taken by a stable sort of each row: an expert's picks keep their flat
+    order in the sorted run, so a pick's rank is its place there less the
+    place where its expert's run starts. That is O(N) work with no (N, E)
+    tensor, where a cumulative sum over a one-hot is, on the card, a
+    serial walk of all N picks in each of only G·E columns."""
+    g_n, n = flat_e.shape
+    sorted_e, by_e = torch.sort(flat_e, dim=1, stable=True)
+    # each expert's first place in the sorted run (G, E): the number of
+    # picks of the lower experts
+    start = torch.searchsorted(sorted_e, torch.arange(
+        n_experts, device=flat_e.device).expand(g_n, n_experts).contiguous())
+    place = torch.empty_like(flat_e).scatter_(1, by_e, torch.arange(
+        n, device=flat_e.device).expand(g_n, n))
+    return place - start.gather(1, flat_e)
+
+
 def moe_route(router, x, *, n_experts: int, top_k: int,
               capacity_factor: float, n_shards: int = 1):
     """The routing decisions of :func:`moe_apply` for x (b, s, d), each of
@@ -333,9 +354,10 @@ def moe_route(router, x, *, n_experts: int, top_k: int,
     rule; a stable descending sort, since ``torch.topk`` promises no
     order), gates renormalised over the k picks (floor 1e-9), and each
     (token, pick) ranked in its expert's bucket by a cumulative count in
-    flat (t, k) order, so earlier tokens win the capacity ``C = max(int(cf
-    · t · k / E), k)``. Returns (probs (G, t, E), gates (G, t, k), expert
-    ids (G, t, k), ranks (G, t·k), C); a pick is kept where rank < C."""
+    flat (t, k) order (:func:`moe_ranks`), so earlier tokens win the
+    capacity ``C = max(int(cf · t · k / E), k)``. Returns (probs (G, t,
+    E), gates (G, t, k), expert ids (G, t, k), ranks (G, t·k), C); a pick
+    is kept where rank < C."""
     b, s, d = x.shape
     if b % n_shards:
         raise ValueError(f"{b} rows do not split into {n_shards} shards")
@@ -346,10 +368,7 @@ def moe_route(router, x, *, n_experts: int, top_k: int,
     gates, expert_idx = vals[..., :top_k], order[..., :top_k]
     gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
     cap = max(int(capacity_factor * t * top_k / n_experts), top_k)
-    flat_e = expert_idx.reshape(n_shards, t * top_k)
-    onehot = (flat_e[..., None] == torch.arange(n_experts, device=x.device)
-              ).to(torch.int32)  # (G, t·k, E)
-    rank = torch.cumsum(onehot, dim=1).gather(2, flat_e[..., None])[..., 0] - 1
+    rank = moe_ranks(expert_idx.reshape(n_shards, t * top_k), n_experts)
     return probs, gates, expert_idx, rank, cap
 
 

@@ -14,6 +14,11 @@ numpy-seeded inputs and weights (``params_from_numpy``), on the CPU:
   the reference's three MoE property cases (dropless equals the dense
   gate-weighted mixture, expert chunking equals none, capacity
   monotonicity);
+* the bucket ranks (``moe_ranks``, a stable sort of the picks) bit-equal
+  to the one-hot cumulative count and to the reference's ``pos`` over 1,
+  2 and 4 shards, a ``held=`` window, every pick on two experts, router
+  ties and the granite-4.0-h-small-l10 cell's routing shape, with
+  ``moe_apply``'s output and gradients bit-equal under either rank;
 * the model on reduced granite and reduced llama4-scout: ``moe_block``,
   ``lm.forward`` logits and aux, ``lm.loss_fn`` (``coef · aux /
   n_layers``), prefill then decode against the full forward (the
@@ -218,6 +223,100 @@ def test_moe_gradients_match_jax_grad(cf, chunk, n_shards):
     assert _err(gx, xt.grad) < TOL
     for n in p:
         assert _err(gp[n], pt[n].grad) < TOL, n
+
+
+# the bucket ranks: ``moe_ranks`` (a stable sort of the picks) against the
+# one-hot cumulative count it replaced and the reference's own ``pos``
+
+
+def _onehot_ranks(flat_e, e):
+    """The one-hot cumulative count of each pick's expert in flat order,
+    (G, t·k) as ``moe_ranks`` gives it (the oracle)."""
+    onehot = (flat_e[..., None] == torch.arange(e)).to(torch.int32)
+    return torch.cumsum(onehot, dim=1).gather(2, flat_e[..., None])[..., 0] - 1
+
+
+def _jax_route(p, x, n_shards, e, k):
+    """Each shard's expert ids and ``pos`` by the reference's lines of
+    ``repro.models.layers.moe_apply``: (G, t, k), (G, t·k)."""
+    ids, pos = [], []
+    for xs in np.split(x, n_shards):
+        xf = jnp.asarray(xs.reshape(-1, xs.shape[-1]))
+        probs = jax.nn.softmax(jnp.einsum("td,de->te", xf, jnp.asarray(
+            p["router"])).astype(jnp.float32), axis=-1)
+        _, idx = jax.lax.top_k(probs, k)
+        flat = idx.reshape(-1)
+        onehot = jax.nn.one_hot(flat, e, dtype=jnp.int32)
+        ids.append(np.asarray(idx))
+        pos.append(np.asarray((jnp.cumsum(onehot, axis=0) * onehot)
+                              .sum(axis=-1) - 1))
+    return np.stack(ids), np.stack(pos)
+
+
+# (name, experts, top_k, capacity factor, n_shards, held, rows, seq)
+RANK_CASES = [
+    ("shards1", 8, 2, 1.25, 1, None, 4, 6),
+    ("shards2-top1", 16, 1, 1.25, 2, None, 4, 6),
+    ("shards4", 40, 8, 1.25, 4, None, 4, 6),
+    ("held", 8, 2, 1.25, 2, (2, 3), 4, 6),
+    ("one-expert", 8, 2, 0.5, 1, None, 4, 6),
+    ("ties", 8, 3, 0.5, 2, None, 4, 6),
+    ("cell", 72, 10, 2.0, 1, None, 1, 4096),
+]
+
+
+@pytest.mark.parametrize("case", RANK_CASES, ids=lambda c: c[0])
+def test_moe_ranks_match_onehot_count_and_reference(case, monkeypatch):
+    """``moe_route``'s ranks bit-equal to the one-hot cumulative count and
+    to the reference's ``pos`` on the reference's own expert ids; and
+    ``moe_apply``'s output and gradients bit-equal with the one-hot ranks
+    in its place. "one-expert" sends every token's picks to experts 5 and
+    3 (the deepest overflow), "ties" has a row of zeros (every expert
+    ties), "cell" is the granite-4.0-h-small-l10 cell's routing shape
+    (t 4096, top-10 of 72, C 1137)."""
+    name, e, k, cf, n_shards, held, b, s = case
+    p, x = _moe_case(7, e, b=b, s=s, zero_row=name == "ties")
+    if name == "one-expert":
+        p["router"][:] = 0.0
+        p["router"][0, 5], p["router"][0, 3] = 4.0, 2.0
+        x[..., 0] = np.abs(x[..., 0]) + 1.0
+    kw = dict(n_experts=e, top_k=k, capacity_factor=cf)
+    pt = params_from_numpy(p)
+    _, _, idx, rank, cap = TL.moe_route(pt["router"], torch.from_numpy(x),
+                                        n_shards=n_shards, **kw)
+    if name == "cell":
+        assert cap == 1137
+    flat_e = idx.reshape(n_shards, -1)
+    oracle = _onehot_ranks(flat_e, e)
+    assert rank.dtype == torch.int64 and torch.equal(rank, oracle)
+    j_ids, j_pos = _jax_route(p, x, n_shards, e, k)
+    assert np.array_equal(j_ids, idx.numpy())
+    assert np.array_equal(j_pos, rank.numpy())
+    if name == "one-expert":
+        assert torch.equal(rank[0, ::k], torch.arange(b * s))
+        assert int((rank >= cap).sum()) == 2 * (b * s - cap)
+
+    if held is not None:
+        first, n = held
+        for w in ("w_gate", "w_up", "w_down"):
+            p[w] = p[w][first:first + n]
+    seed = np.random.default_rng(8).normal(size=x.shape).astype(np.float32)
+
+    def run():
+        pg = {n_: t.requires_grad_() for n_, t in params_from_numpy(p).items()}
+        xg = torch.from_numpy(x).requires_grad_()
+        out, aux = TL.moe_apply(pg, xg, n_shards=n_shards, held=held, **kw)
+        ((out * torch.from_numpy(seed)).sum() + aux).backward()
+        return out.detach(), aux.detach(), xg.grad, {
+            n_: t.grad for n_, t in pg.items()}
+
+    new = run()
+    monkeypatch.setattr(TL, "moe_ranks", _onehot_ranks)
+    old = run()
+    for a, o in zip(new[:3], old[:3]):
+        assert torch.equal(a, o)
+    for n_ in p:
+        assert torch.equal(new[3][n_], old[3][n_]), n_
 
 
 # the reference's MoE property cases (tests/test_layers.py,
