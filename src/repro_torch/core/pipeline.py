@@ -485,18 +485,6 @@ def unstack_trials(params):
     return out
 
 
-def _unit_span(eng: EngineConfig, s: int, k: int, m: int, device):
-    """The ``train.unit`` span of stage ``s`` on slot (trial ``k``,
-    microbatch ``m``) on ``device``, under the current tracer (a no-op
-    without one)."""
-    tr = obs_tracer.current()
-    if not tr.enabled:
-        return obs_tracer.NO_SPAN
-    return tr.span("train.unit", tr.train_pass,
-                   t=s + m * eng.n_trials + k, s=s, k=k, m=m,
-                   dev=str(device))
-
-
 def _hop(x, dst):
     """An activation's ``.to`` between stages of the placed step: a
     ``train.hop`` span and its bytes counted under the current tracer."""
@@ -510,166 +498,264 @@ def _hop(x, dst):
         return x.to(dst, non_blocking=True)
 
 
+@dataclasses.dataclass(frozen=True)
+class _Placement:
+    """Where one call's tick loop runs unit (replica ``r``, stage ``s``)
+    and what it finds there: :func:`_one_device` or :func:`_on_layout`."""
+
+    replicas: list  # (p, d) of each data-parallel replica
+    device: Callable  # (r, s) -> the unit's device
+    rows: dict  # (r, s) -> replica r's batch rows there, and their "pos"
+    views: dict  # (r, s) -> per-trial dicts of the parameters there
+    grads: Optional[dict]  # (r, s) -> the gradient buffer's, or None
+    split_vocab: bool  # each stage's device holds a vocab slice
+    fsdp: bool  # each data row's device holds a shard of the layers
+    n_shards: int  # MoE routing shards of a unit's rows
+    hop: bool  # an activation crosses each stage boundary with _hop
+    divisor: int  # the objective is the replicas' sum over it
+    reduce: Callable  # grads -> (grads, per-trial grad norm)
+    root: torch.device  # where the objective and the metrics are gathered
+
+
+def _one_device(cfg: ArchConfig, eng: EngineConfig, params, grads,
+                batch) -> _Placement:
+    """One replica on the parameters' device over the whole global
+    microbatch, whose rows route as ``eng.data_size`` MoE shards (so its
+    loss already is the reference's mean over them); stage s sees each
+    trial's views with its own layers."""
+    S, l_s = eng.n_stages, plan_stages(cfg, eng.n_stages).layers_per_stage
+    dev = params["embed"]["tok"].device
+    rows = {n: v.to(dev) for n, v in batch.items()}
+    mbg, seq = rows["tokens"].shape[-2:]
+    rows["pos"] = torch.arange(seq, device=dev).expand(mbg, seq)
+
+    def by_stage(tree):
+        trials = unstack_trials(tree)
+        return {((0, 0), s): [dict(p, layers=p["layers"][s * l_s:
+                                                         (s + 1) * l_s])
+                              for p in trials] for s in range(S)}
+
+    return _Placement(
+        [(0, 0)], lambda r, s: dev, {((0, 0), s): rows for s in range(S)},
+        by_stage(params), None if grads is None else by_stage(grads),
+        split_vocab=False, fsdp=False, n_shards=eng.data_size, hop=False,
+        divisor=1, reduce=functools.partial(reduce_grads, cfg, eng),
+        root=dev)
+
+
+def _on_layout(cfg: ArchConfig, eng: EngineConfig, layout, params, grads,
+               batch) -> _Placement:
+    """A replica per (pod, data) row of ``layout``: unit (s, slot) of
+    replica (p, d) runs on device (p, d, s) over that replica's rows (its
+    MoE rows one shard) and the views of that device's shards, and the
+    objective is the replicas' sum over ``eng.dp_degree`` (the
+    reference's)."""
+    reps = [(p, d) for p in range(eng.pod_size)
+            for d in range(eng.data_size)]
+    units = [(r, s) for r in reps for s in range(eng.n_stages)]
+    dev = lambda r, s: layout.device(*r, s)
+    seq = batch["tokens"].shape[-1]
+    rows = {(r, s): dict(_replica_rows(eng, batch, *r, dev(r, s)),
+                         pos=torch.arange(seq, device=dev(r, s)).expand(
+                             eng.microbatch, seq)) for r, s in units}
+    views = lambda tree: {(r, s): unstack_trials(tree[r[0]][r[1]][s])
+                          for r, s in units}
+    return _Placement(
+        reps, dev, rows, views(params),
+        None if grads is None else views(grads),
+        split_vocab=eng.vocab_parallel, fsdp=eng.fsdp, n_shards=1, hop=True,
+        divisor=eng.dp_degree,
+        reduce=functools.partial(reduce_placed_grads, cfg, eng, layout),
+        root=layout.root)
+
+
+def _unit_leaves(p, g, names):
+    """One unit's own autograd leaves of the entries ``names`` of a
+    per-trial dict of views ``p``, each ``.grad`` preset to the matching
+    view in ``g`` (the gradient buffer's dict; None: ``p``'s views, a loss
+    differentiated through the parameters). A leaf that several units
+    shared would have one AccumulateGrad node, and autograd would hold
+    the sum of the gradients that reach it until the last use's arrived:
+    a gradient-sized buffer for each leaf still awaited (up to the whole
+    model's gradient). A leaf per unit adds each gradient into the buffer
+    when it is computed, in the same order, so the sums are the same.
+    (Views of the stacked leaves, not slices taken inside autograd: those
+    would materialize a zero-filled full-size gradient per use.)"""
+    pick = lambda t: {n: t[n] for n in names}  # a name twice: one entry
+    if g is None:
+        return pick(p)
+
+    def leaf(v, gv):
+        t = v.detach().requires_grad_()
+        t.grad = gv
+        return t
+
+    return tree_map(leaf, pick(p), pick(g))
+
+
 def _train_loss(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
-                trials, batch, unit_params=None):
-    """The tick loop of :func:`pipeline_train_loss` over per-trial
-    parameter dicts (see :func:`unstack_trials`), or, with
-    ``unit_params(k, lo, hi)``, over the dict it returns for each unit
-    (trial ``k``, layers [lo, hi)). batch: tokens / labels
-    (K, M, mb_global, seq) tensors on the parameters' device, plus
-    ``frontend_embeds`` (K, M, mb_global, nf, d), which replace the first
-    nf embedded rows of every slot, and the M-RoPE archs' ``mrope_pos``
-    (K, M, 3, mb_global, seq). Returns the
-    (K,) per-trial losses, each the mean over its M slots, and the (K,)
-    per-trial MoE aux: each (stage, slot) pair's sum over its real layers
-    of the mean over data shards, summed over stages and slots and
-    divided by M (the reference's psum over stages of the per-shard
-    accumulator; zero for the other families)."""
+                place: _Placement):
+    """The tick loop of :func:`pipeline_train_loss` and of the train step,
+    on either placement, over every replica. Returns (losses, auxes),
+    lists over the replicas of their (K,) per-trial losses and MoE aux
+    (see :func:`pipeline_train_loss`) on their last-stage devices."""
     S, K, M = eng.n_stages, eng.n_trials, eng.n_microbatches
     l_s = plan_stages(cfg, S).layers_per_stage
-    tokens, labels = batch["tokens"], batch["labels"]
-    mbg, seq = tokens.shape[-2], tokens.shape[-1]
-    pos = torch.arange(seq, device=tokens.device).expand(mbg, seq)
-    loss_fn = vp_loss if eng.vocab_parallel else plain_loss
-    embed = vp_embed if eng.vocab_parallel else plain_embed
-    fe, mrope = batch.get("frontend_embeds"), batch.get("mrope_pos")
+    rows, dev, cdt = place.rows, place.device, opts.compute_dtype
 
-    def unit(x, s, k, m):
-        """One (stage, slot) pair: embed at stage 0, the stage's layers,
-        the loss at the last stage."""
-        with _unit_span(eng, s, k, m, tokens.device):
-            lo = s * l_s
-            p = trials[k] if unit_params is None else unit_params(
-                k, lo, lo + l_s)
+    def unit_params(r, s, k):
+        """Unit (r, s, k)'s leaves: its layers (with FSDP every data row's
+        shard, joined by ``"gather"``), the hybrid's shared block where
+        the stage has a site, and ``"ends"``: the embedding at stage 0,
+        the final norm and the head (or the tied embedding) at the last
+        stage, from every stage's device where the vocab is split."""
+        def take(rep, j, names):  # from replica rep's stage-j device
+            g = None if place.grads is None else place.grads[rep, j][k]
+            return _unit_leaves(place.views[rep, j][k], g, names)
+
+        # lists, not sets: the same order of leaves in every process
+        own, ends = ["layers"], ["embed"] if s == 0 else []
+        if cfg.hybrid is not None and any(
+                lm.shared_site_flags(cfg, s * l_s, l_s)[0]):
+            own.append("shared")
+        if s == S - 1:
+            ends += ["final_norm",
+                     "head" if "head" in place.views[r, s][k] else "embed"]
+        q = take(r, s, own)
+        q["gather"] = None
+        if place.fsdp:
+            peers = [q["layers"] if e == r[1] else
+                     take((r[0], e), s, ["layers"])["layers"]
+                     for e in range(eng.data_size)]
+            q["gather"] = _layer_gather(cfg, eng, dev(r, s), r[1], peers)
+        q["ends"] = [take(r, j, ends) for j in (
+            range(S) if place.split_vocab else [s])]
+        return q
+
+    def embed(q, r, k, m):
+        if not place.split_vocab:
+            here = rows[r, 0]
+            return (vp_embed if eng.vocab_parallel else plain_embed)(
+                cfg, eng, q["ends"][0]["embed"], here["tokens"][k, m],
+                here["pos"], cdt)
+        parts = [_vp_embed_part(cfg, e["embed"], rows[r, j]["tokens"][k, m],
+                                rows[r, j]["pos"], j, cdt).to(dev(r, 0))
+                 for j, e in enumerate(q["ends"])]
+        return sum(parts[1:], parts[0])
+
+    def loss(q, r, k, m, y):
+        if not place.split_vocab:
+            e = q["ends"][0]
+            return (vp_loss if eng.vocab_parallel else plain_loss)(
+                cfg, eng, e["final_norm"], lm.head_of(e), y,
+                rows[r, S - 1]["labels"][k, m])
+        return _vp_loss_placed(
+            cfg, q["ends"], y, [rows[r, j]["labels"][k, m] for j in range(S)],
+            [dev(r, j) for j in range(S)])
+
+    def unit(x, q, r, s, k, m):
+        """One (stage, slot) pair of replica ``r``: embed at stage 0, the
+        stage's layers, the loss at the last stage."""
+        tr = obs_tracer.current()
+        with (tr.span("train.unit", tr.train_pass, t=s + m * K + k, s=s,
+                      k=k, m=m, dev=str(dev(r, s)))
+              if tr.enabled else obs_tracer.NO_SPAN):
+            here = rows[r, s]
             if s == 0:
-                x = embed(cfg, eng, p["embed"], tokens[k, m], pos,
-                          opts.compute_dtype)
-                if fe is not None:
-                    x = lm.replace_frontend_rows(x, fe[k, m])
+                x = embed(q, r, k, m)
+                if "frontend_embeds" in here:
+                    x = lm.replace_frontend_rows(
+                        x, here["frontend_embeds"][k, m])
+            lo = s * l_s
             # a hybrid trial's one shared block serves every stage's sites:
             # its gradients from all stages add up in the one backward()
-            # (the reference's psum over the stage axis)
+            # and in one buffer (the reference's psum over the stage axis)
             x, _, aux = lm.stack_apply(
-                cfg, opts, p["layers"][lo:lo + l_s], x,
-                pos=pos if mrope is None else mrope[k, m], mode="train",
-                shared_params=p.get("shared"),
+                cfg, opts, q["layers"], x,
+                pos=here["mrope_pos"][k, m] if "mrope_pos" in here
+                else here["pos"], mode="train",
+                shared_params=q.get("shared"),
                 layer_mask=[lo + i < cfg.n_layers for i in range(l_s)],
-                layer_offset=lo, n_shards=eng.data_size)
+                layer_offset=lo, n_shards=place.n_shards,
+                layer_param_fn=q["gather"])
             if s == S - 1:
-                return loss_fn(cfg, eng, p["final_norm"], lm.head_of(p), x,
-                               labels[k, m]), aux
+                return loss(q, r, k, m, x), aux
             return x, aux
 
     # the reference's tick-level remat: each (stage, slot) pair keeps only
     # its input and is recomputed in backward
     remat = opts.remat and torch.is_grad_enabled()
-    losses = [[] for _ in range(K)]
-    auxes = [[] for _ in range(K)]
-    acts = [None] * S  # stage s's output of the previous tick
+    losses = {r: [[] for _ in range(K)] for r in place.replicas}
+    auxes = {r: [[] for _ in range(K)] for r in place.replicas}
+    acts = {}  # (r, s) -> stage s's output of the previous tick
     for t in range(eng.n_ticks):
-        nxt = [None] * S
+        nxt = {}
         for s in range(S):
             slot = t - s
             if not 0 <= slot < eng.n_slots:
                 continue  # fill/drain bubble: masked in the reference
             k, m = slot % K, slot // K
-            out, aux = (checkpoint(unit, acts[s - 1] if s else None, s, k,
-                                   m, use_reentrant=False,
-                                   preserve_rng_state=False)
-                        if remat else unit(acts[s - 1] if s else None, s, k,
-                                           m))
-            auxes[k].append(aux)
-            if s == S - 1:
-                losses[k].append(out)
-            else:
-                nxt[s] = out
+            for r in place.replicas:
+                x = acts[r, s - 1] if s else None
+                if s and place.hop:
+                    x = _hop(x, dev(r, s))
+                q = unit_params(r, s, k)
+                out, aux = (checkpoint(unit, x, q, r, s, k, m,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
+                            if remat else unit(x, q, r, s, k, m))
+                auxes[r][k].append(aux)
+                if s == S - 1:
+                    losses[r][k].append(out)
+                else:
+                    nxt[r, s] = out
         acts = nxt
-    return (torch.stack([sum(ls) for ls in losses]) / M,
-            torch.stack([sum(a) for a in auxes]) / M)
+    return ([torch.stack([sum(ls) for ls in losses[r]]) / M
+             for r in place.replicas],
+            [torch.stack([sum(a.to(dev(r, S - 1)) for a in ax)
+                          for ax in auxes[r]]) / M for r in place.replicas])
 
 
 def pipeline_train_loss(cfg: ArchConfig, opts: ModelOptions,
                         eng: EngineConfig, params, batch, layout=None):
     """Runs the multi-trial pipelined forward; returns per-trial (loss, aux)
-    (K,) tensors (aux: the MoE load-balance term, summed over the real
-    layers of every stage, the mean over data shards, averaged over the M
-    microbatches; zero for the other families).
+    (K,) tensors: each trial's mean loss over its M slots, and its MoE
+    load-balance term, each (stage, slot) pair's sum over its real layers
+    of the mean over data shards, summed over stages and slots and divided
+    by M (the reference's psum over stages of the per-shard accumulator;
+    zero for the other families).
 
     params: the trial-stacked dict (layers (K, Lp, ...), embed/tok
     (K, Vp, D), head (K, D, Vp), final_norm (K, D)). batch: tokens / labels
-    (K, M, mb_global, seq), tensors or numpy, with the frontend archs'
-    ``frontend_embeds`` and the M-RoPE archs' ``mrope_pos`` (see
-    :func:`_train_loss`). Each tick ``t`` advances stage
-    ``s`` on slot ``t - s`` (trial ``slot % K``, microbatch ``slot // K``);
-    bubble pairs are skipped. Differentiable w.r.t. ``params``.
+    (K, M, mb_global, seq), tensors or numpy, plus the frontend archs'
+    ``frontend_embeds`` (K, M, mb_global, nf, d), which replace the first
+    nf embedded rows of every slot, and the M-RoPE archs' ``mrope_pos``
+    (K, M, 3, mb_global, seq). Each tick ``t`` advances stage ``s`` on
+    slot ``t - s`` (trial ``slot % K``, microbatch ``slot // K``); bubble
+    pairs are skipped. Differentiable w.r.t. ``params``.
 
     With ``layout``, ``params`` is the placed tree of
     :func:`place_trial_params` and the (loss, aux) come back as the means
     over the replicas, on the layout's root device.
     """
-    if layout is not None:
-        local = _grid(layout, lambda p, d, s: unstack_trials(params[p][d][s]))
-        losses, auxes = _placed_train_loss(cfg, opts, eng, layout, local,
-                                           _train_batch(batch))
-        return _replica_mean(layout, losses), _replica_mean(layout, auxes)
-    batch = _train_batch(batch, params["embed"]["tok"].device)
-    return _train_loss(cfg, opts, eng, unstack_trials(params), batch)
+    batch = _train_batch(batch)
+    place = (_one_device(cfg, eng, params, None, batch) if layout is None
+             else _on_layout(cfg, eng, layout, params, None, batch))
+    losses, auxes = _train_loss(cfg, opts, eng, place)
+    return _replica_mean(place.root, losses), _replica_mean(place.root, auxes)
 
 
-def _train_batch(batch, device=None):
+def _train_batch(batch):
     """tokens / labels and any frontend_embeds / mrope_pos (tensors or
-    numpy) as tensors on ``device`` (None: tensors stay where they are,
-    numpy arrays come to the CPU)."""
+    numpy) as tensors: tensors stay where they are, numpy arrays come to
+    the CPU."""
     out = {}
     for n in ("tokens", "labels", "frontend_embeds", "mrope_pos"):
         if n in batch:
             v = batch[n]
-            v = v if torch.is_tensor(v) else torch.from_numpy(
+            out[n] = v if torch.is_tensor(v) else torch.from_numpy(
                 np.ascontiguousarray(v))
-            out[n] = v if device is None else v.to(device)
     return out
-
-
-def _grad_leaves(params, grads):
-    """Per-trial (and per-layer) leaf tensors that alias ``params`` and
-    accumulate their gradients straight into the matching views of
-    ``grads``: slicing a stacked leaf inside autograd would materialize a
-    zero-filled full-size gradient per use (1.8 GB for the largest leaf at
-    full width)."""
-    def leaf(p, g):
-        t = p.detach().requires_grad_()
-        t.grad = g
-        return t
-
-    return tree_map(leaf, unstack_trials(params), unstack_trials(grads))
-
-
-def _unit_grad_leaves(params, grads):
-    """fn(k, lo, hi) -> trial ``k``'s parameters for one (stage, slot) unit
-    of a mixed stack: the layers [lo, hi) (None elsewhere in the list) and
-    the leaves outside the stack, as fresh leaves like
-    :func:`_grad_leaves`', a set a unit. A leaf that several units use has
-    one AccumulateGrad node, and autograd holds the sum of the gradients
-    that reach it until the last use's arrives: a gradient-sized buffer
-    for each leaf still awaited, beside ``grads`` (up to the whole model's
-    gradient). With a leaf per unit each gradient adds into ``grads`` when
-    it is computed, in the same order, so the sums are the same."""
-    def leaf(k):
-        def one(p, g):
-            t = p[k].detach().requires_grad_()
-            t.grad = g[k]
-            return t
-        return one
-
-    def unit(k, lo, hi):
-        out = {n: tree_map(leaf(k), v, grads[n])
-               for n, v in params.items() if n != "layers"}
-        out["layers"] = [None] * lo + [
-            tree_map(leaf(k), params["layers"][i], grads["layers"][i])
-            for i in range(lo, hi)]
-        return out
-
-    return unit
 
 
 def reduce_grads(cfg: ArchConfig, eng: EngineConfig, grads):
@@ -747,135 +833,36 @@ def _replica_rows(eng: EngineConfig, batch, p: int, d: int, device):
             .to(device, non_blocking=True) for n, v in batch.items()}
 
 
-def _fsdp_gather(cfg: ArchConfig, eng: EngineConfig, layout, local):
-    """fn(p, d, s, k) -> the ``layer_param_fn`` of unit (p, d, s) on trial
-    k (None without FSDP): local layer i's leaves joined over the data
-    rows on the unit's device (the reference's ``make_layer_gather``).
-    ``local[p][d][s]``: device (p, d, s)'s per-trial dicts."""
-    if not eng.fsdp:
-        return lambda p, d, s, k: None
+def _layer_gather(cfg: ArchConfig, eng: EngineConfig, here, d: int, peers):
+    """The ``layer_param_fn`` of a unit of data row ``d`` on device
+    ``here``: local layer i's leaves joined over the data rows' shards
+    ``peers[r][i]`` (the reference's ``make_layer_gather``)."""
     splits = param_splits(cfg, eng)["layers"]
 
-    def make(p, d, s, k):
-        here = layout.device(p, d, s)
+    def gather(i, p_i):
+        return tree_map(
+            lambda sp, *ls: ls[d] if sp.data is None else torch.cat(
+                [x.to(here) for x in ls], dim=sp.data - 2),
+            splits, *(layers[i] for layers in peers))
 
-        def gather(i, p_i):
-            shards = [local[p][r][s][k]["layers"][i]
-                      for r in range(eng.data_size)]
-            return tree_map(
-                lambda sp, *ls: ls[d] if sp.data is None else torch.cat(
-                    [x.to(here) for x in ls], dim=sp.data - 2),
-                splits, *shards)
-
-        return gather
-
-    return make
+    return gather
 
 
-def _placed_train_loss(cfg: ArchConfig, opts: ModelOptions,
-                       eng: EngineConfig, layout, local, batch):
-    """The tick loop on a device layout. ``local[p][d][s]``: device (p, d,
-    s)'s per-trial dicts (:func:`unstack_trials` of its shard tree);
-    batch: the global tensors of :func:`_train_loss`. Unit (s, slot) of
-    replica (p, d) runs on device (p, d, s) on that replica's rows; each
-    device's MoE rows route as one shard. Returns (losses, auxes): lists
-    over the replicas in (p, d) order of (K,) tensors on each replica's
-    last-stage device, as :func:`_train_loss` returns them for one
-    replica's rows."""
-    S, K, M = eng.n_stages, eng.n_trials, eng.n_microbatches
-    n_pod, n_data = eng.pod_size, eng.data_size
-    l_s = plan_stages(cfg, S).layers_per_stage
-    dev = layout.device
-    seq = batch["tokens"].shape[-1]
-    rows = {(p, d, s): _replica_rows(eng, batch, p, d, dev(p, d, s))
-            for p in range(n_pod) for d in range(n_data) for s in range(S)}
-    pos = {(p, d, s): torch.arange(seq, device=dev(p, d, s)).expand(
-        eng.microbatch, seq) for p, d, s in rows}
-    # inside each layer's remat boundary: autograd of the join is the
-    # reduce-scatter onto each row's shard
-    layer_gather = _fsdp_gather(cfg, eng, layout, local)
-
-    def embed(p, d, k, m):
-        if not eng.vocab_parallel:
-            return plain_embed(cfg, eng, local[p][d][0][k]["embed"],
-                               rows[p, d, 0]["tokens"][k, m], pos[p, d, 0],
-                               opts.compute_dtype)
-        first = dev(p, d, 0)
-        parts = [_vp_embed_part(cfg, local[p][d][s][k]["embed"],
-                                rows[p, d, s]["tokens"][k, m], pos[p, d, s],
-                                s, opts.compute_dtype).to(first)
-                 for s in range(S)]
-        return sum(parts[1:], parts[0])
-
-    def loss(p, d, k, m, y):
-        if not eng.vocab_parallel:
-            q = local[p][d][S - 1][k]
-            return plain_loss(cfg, eng, q["final_norm"], q["head"], y,
-                              rows[p, d, S - 1]["labels"][k, m])
-        return _vp_loss_placed(
-            cfg, [local[p][d][s][k] for s in range(S)], y,
-            [rows[p, d, s]["labels"][k, m] for s in range(S)],
-            [dev(p, d, s) for s in range(S)])
-
-    def unit(x, p, d, s, k, m):
-        with _unit_span(eng, s, k, m, dev(p, d, s)):
-            here = rows[p, d, s]
-            if s == 0:
-                x = embed(p, d, k, m)
-                if "frontend_embeds" in here:
-                    x = lm.replace_frontend_rows(
-                        x, here["frontend_embeds"][k, m])
-            lo = s * l_s
-            q = local[p][d][s][k]
-            x, _, aux = lm.stack_apply(
-                cfg, opts, q["layers"], x,
-                pos=here["mrope_pos"][k, m] if "mrope_pos" in here
-                else pos[p, d, s], mode="train",
-                shared_params=q.get("shared"),
-                layer_mask=[lo + i < cfg.n_layers for i in range(l_s)],
-                layer_offset=lo, n_shards=1,
-                layer_param_fn=layer_gather(p, d, s, k))
-            if s == S - 1:
-                return loss(p, d, k, m, x), aux
-            return x, aux
-
-    remat = opts.remat and torch.is_grad_enabled()
-    reps = [(p, d) for p in range(n_pod) for d in range(n_data)]
-    losses = {r: [[] for _ in range(K)] for r in reps}
-    auxes = {r: [[] for _ in range(K)] for r in reps}
-    acts = {}  # (p, d, s) -> stage s's output of the previous tick
-    for t in range(eng.n_ticks):
-        nxt = {}
-        for s in range(S):
-            slot = t - s
-            if not 0 <= slot < eng.n_slots:
-                continue  # fill/drain bubble: masked in the reference
-            k, m = slot % K, slot // K
-            for p, d in reps:
-                x = _hop(acts[p, d, s - 1], dev(p, d, s)) if s else None
-                out, aux = (checkpoint(unit, x, p, d, s, k, m,
-                                       use_reentrant=False,
-                                       preserve_rng_state=False)
-                            if remat else unit(x, p, d, s, k, m))
-                auxes[p, d][k].append(aux)
-                if s == S - 1:
-                    losses[p, d][k].append(out)
-                else:
-                    nxt[p, d, s] = out
-        acts = nxt
-    out_l, out_a = [], []
-    for p, d in reps:
-        last = dev(p, d, S - 1)
-        out_l.append(torch.stack([sum(ls) for ls in losses[p, d]]) / M)
-        out_a.append(torch.stack([sum(a.to(last) for a in ax)
-                                  for ax in auxes[p, d]]) / M)
-    return out_l, out_a
+def _fsdp_gather(cfg: ArchConfig, eng: EngineConfig, layout, local):
+    """fn(p, d, s, k) -> :func:`_layer_gather` for unit (p, d, s) on trial
+    k (None without FSDP). ``local[p][d][s]``: device (p, d, s)'s
+    per-trial dicts."""
+    if not eng.fsdp:
+        return lambda p, d, s, k: None
+    return lambda p, d, s, k: _layer_gather(
+        cfg, eng, layout.device(p, d, s), d,
+        [local[p][r][s][k]["layers"] for r in range(eng.data_size)])
 
 
-def _replica_mean(layout, vecs):
-    """The mean over replicas of (K,) tensors, on the layout's root (the
+def _replica_mean(root, vecs):
+    """The mean over replicas of (K,) tensors, on ``root`` (the
     reference's pmean over the data and pod axes)."""
-    return torch.stack([v.to(layout.root) for v in vecs]).mean(dim=0)
+    return torch.stack([v.to(root) for v in vecs]).mean(dim=0)
 
 
 def reduce_placed_grads(cfg: ArchConfig, eng: EngineConfig, layout, grads):
@@ -925,58 +912,6 @@ def _traced(step_fn, tracer):
     return traced
 
 
-def _zeroed_grads(bufs: dict, params):
-    """The gradient buffer (allocated at the first call), zeroed."""
-    if "grads" not in bufs:
-        bufs["grads"] = tree_map(torch.zeros_like, params)
-    grads = bufs["grads"]
-    for g in tree_leaves(grads):
-        g.zero_()
-    return grads
-
-
-def _make_placed_train_step(cfg: ArchConfig, opts: ModelOptions,
-                            eng: EngineConfig, optimizer, layout,
-                            tracer) -> Callable:
-    """:func:`make_train_step` on a device layout (see there)."""
-    check_layout(eng, layout, cfg)
-    bufs = {}
-
-    def step_fn(tr, params, opt_state, batch, hparams, step):
-        with tr.span("train.zero_grads"):
-            grads = _zeroed_grads(bufs, params)
-        with tr.span("train.batch"):
-            batch = _train_batch(batch)
-        with tr.span("train.forward"):
-            local = _grid(layout, lambda p, d, s: _grad_leaves(
-                params[p][d][s], grads[p][d][s]))
-            losses, auxes = _placed_train_loss(cfg, opts, eng, layout,
-                                               local, batch)
-            # the objective over the dp replicas: the sum of their local
-            # objectives divided by the dp degree (the reference's)
-            total = 0
-            for loss_vec, aux_vec in zip(losses, auxes):
-                local_total = loss_vec.sum()
-                if cfg.moe is not None:
-                    local_total = local_total \
-                        + cfg.moe.load_balance_coef * aux_vec.sum()
-                total = total + local_total.to(layout.root)
-        with tr.span("train.backward"):
-            (total / eng.dp_degree).backward()
-        with tr.span("train.reduce_grads"):
-            grads, gnorm = reduce_placed_grads(cfg, eng, layout, grads)
-        with tr.span("train.optimizer"):
-            params, opt_state = optimizer.update(
-                params, grads, opt_state, hparams, step, grad_norm=gnorm)
-        with tr.span("train.readback"):
-            loss = _replica_mean(layout, [v.detach() for v in losses])
-            met = {"loss": tr.read_back(loss),
-                   "grad_norm": tr.read_back(gnorm)}
-        return params, opt_state, met
-
-    return _traced(step_fn, tracer)
-
-
 def make_train_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
                     optimizer, layout=None, tracer=None) -> Callable:
     """The multi-trial pipelined train step.
@@ -991,7 +926,9 @@ def make_train_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
     alone, as in the reference. ``hparams`` holds (K,) per-trial
     hyperparameters (Hydra's model-selection axis); metrics {"loss",
     "grad_norm"} are (K,) numpy arrays. The gradient buffer (one per
-    parameter leaf) is allocated at the first call and reused.
+    parameter leaf) is allocated at the first call and reused; each
+    (stage, slot) unit adds into it through leaves of its own
+    (:func:`_unit_leaves`).
 
     With ``layout`` (a ``launch.mesh.DeviceLayout`` of the engine's (pod,
     data, model) sizes) the step takes and updates the placed tree of
@@ -1012,40 +949,45 @@ def make_train_step(cfg: ArchConfig, opts: ModelOptions, eng: EngineConfig,
     ``repro.train.*`` profiler ranges. None or a disabled tracer changes
     nothing the step computes.
     """
-    if layout is not None:
-        return _make_placed_train_step(cfg, opts, eng, optimizer, layout,
-                                       tracer)
-    check_runnable(eng)
-    bufs = {}
+    if layout is None:
+        check_runnable(eng)
+    else:
+        check_layout(eng, layout, cfg)
+    grads = None
 
     def step_fn(tr, params, opt_state, batch, hparams, step):
+        nonlocal grads
         with tr.span("train.zero_grads"):
-            grads = _zeroed_grads(bufs, params)
+            if grads is None:
+                grads = tree_map(torch.zeros_like, params)
+            for g in tree_leaves(grads):
+                g.zero_()
         with tr.span("train.batch"):
-            batch = _train_batch(batch, params["embed"]["tok"].device)
+            batch = _train_batch(batch)
         with tr.span("train.forward"):
-            if cfg.layer_types:  # a mixed stack: a leaf set a unit
-                loss_vec, aux_vec = _train_loss(
-                    cfg, opts, eng, None, batch,
-                    _unit_grad_leaves(params, grads))
-            else:
-                loss_vec, aux_vec = _train_loss(
-                    cfg, opts, eng, _grad_leaves(params, grads), batch)
-            total = loss_vec.sum()
-            if cfg.moe is not None:
-                total = total + cfg.moe.load_balance_coef * aux_vec.sum()
+            place = (_one_device(cfg, eng, params, grads, batch)
+                     if layout is None else
+                     _on_layout(cfg, eng, layout, params, grads, batch))
+            losses, auxes = _train_loss(cfg, opts, eng, place)
+            totals = []
+            for loss_vec, aux_vec in zip(losses, auxes):
+                total = loss_vec.sum()
+                if cfg.moe is not None:
+                    total = total + cfg.moe.load_balance_coef * aux_vec.sum()
+                totals.append(total.to(place.root))
         with tr.span("train.backward"):
-            total.backward()
+            (sum(totals) / place.divisor).backward()
         with tr.span("train.reduce_grads"):
-            grads, gnorm = reduce_grads(cfg, eng, grads)
+            grads, gnorm = place.reduce(grads)
         with tr.span("train.optimizer"):
             params, opt_state = optimizer.update(
                 params, grads, opt_state, hparams, step, grad_norm=gnorm)
         with tr.span("train.readback"):
+            loss = _replica_mean(place.root, [v.detach() for v in losses])
             # (on ``meta`` — the dry-run's counting pass — there is
             # nothing to read back: the metrics stay tensors)
             host = (lambda t: t) if gnorm.is_meta else tr.read_back
-            met = {"loss": host(loss_vec), "grad_norm": host(gnorm)}
+            met = {"loss": host(loss), "grad_norm": host(gnorm)}
         return params, opt_state, met
 
     return _traced(step_fn, tracer)

@@ -6,11 +6,12 @@ encoder with remat on:
   bitwise equal with the tracer None, disabled and enabled;
 * a disabled tracer is silent: no event, no counter, no ``repro.`` range
   under ``torch.profiler``;
-* the span counts follow from the engine: each step phase once, a
-  ``train.unit`` per (stage, slot) in each pass, a ``train.layer`` per
-  real layer of each unit forward and two per recompute (PyTorch's
-  checkpoint early stop spares the last layer of a unit below the last
-  stage its run inside the unit's recompute), begin and end paired;
+* the span counts follow from the engine, on one device and on a CPU
+  layout: each step phase once, a ``train.unit`` per (stage, slot) in
+  each pass, a ``train.layer`` per real layer of each unit forward and
+  two per recompute (PyTorch's checkpoint early stop spares the last
+  layer of a unit below the last stage its run inside the unit's
+  recompute), begin and end paired;
 * the spans share the profiler's clock: ``t0_ns + wall`` lies within
   1 ms of its range's start (the median over spans), and each range
   inside its span's begin and end stamps;
@@ -105,15 +106,21 @@ def test_disabled_tracer_is_silent(arch):
     assert current() is obs_tracer.NULL_TRACER
 
 
-@pytest.mark.parametrize("early_stop", [True, False])
+@pytest.mark.parametrize("early_stop, placed", [
+    pytest.param(True, False, id="True"),
+    pytest.param(False, False, id="False"),
+    pytest.param(True, True, id="True-placed")])
 @pytest.mark.parametrize("arch", ARCHS)
-def test_span_counts_follow_the_engine(arch, early_stop):
+def test_span_counts_follow_the_engine(arch, early_stop, placed):
+    """The one tick loop's counts, on one device and on a (1, 1, S) CPU
+    layout alike."""
     cfg = get_config(arch).reduced()
     eng = pl.EngineConfig(n_trials=K, n_microbatches=M, microbatch=ROWS,
                           n_stages=S)
     tr = Tracer()
+    layout = layout_of(["cpu"] * S, (1, 1, S)) if placed else None
     with ckpt.set_checkpoint_early_stop(early_stop):
-        _run(arch, tr, steps=1)
+        _run(arch, tr, steps=1, layout=layout)
     got = _begins(tr)
     for phase in PHASES:
         assert got[phase, None] == 1, phase
